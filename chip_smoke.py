@@ -1,0 +1,244 @@
+#!/usr/bin/env python3
+"""Drive echopype_torch's EK60 raw -> Sv -> MVBS survey path once on a CUDA card.
+
+Run from the root of a checkout, with no arguments, on a machine with one
+NVIDIA card (H100), nvcc and PyTorch built for CUDA:
+
+    python3 chip_smoke.py
+
+Phases (each prints one line; any failure raises, so the exit code is not 0):
+
+1. start: the card's name and power limit (nvidia-smi), torch / CUDA versions;
+   fails at once where ``torch.cuda.is_available()`` is false;
+2. build the CUDA kernels from ``echopype_torch/csrc/`` (nvcc), timed;
+3. K1 (``window_partials_uniform``) at the survey's chunk shape (5 channels x
+   5,000 pings x 4,000 int16 samples, 20 m range bins at dr ~0.19 m, 251
+   twenty-second ping bins) against its plain PyTorch twin on the card:
+   counts exact, sums within rtol 1e-5, two kernel runs bit-identical, both
+   timed with CUDA events (median of 20);
+4. K2 (``window_partials``) the same way, with dr varying by ping;
+5. end to end: three synthetic EK60 files (5 channels, 18-200 kHz, 4,000
+   samples a ping; two of 10,000 pings, one of 5,000 whose sound speed varies
+   by ping, so it takes K2) through ``run_survey_mvbs_from_raw`` on the card;
+   the kernels' launch counters must equal the chunks each path took, and
+   the MVBS must agree with the same call on the CPU (plain twins) within
+   1e-4 dB with identical NaN masks and coordinates;
+6. print the kernel table as one JSON line, then the result line
+   ``{"ok": true, "device": {...}}`` last.
+
+Imports nothing of JAX.  The synthetic files are written under ``build/``
+in the checkout and removed at the end.
+"""
+
+import json
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+DATA_DIR = ROOT / "build" / "chip_smoke"
+CHANNELS = tuple(
+    f"GPT {f:3d} kHz 00907203{i:04x} {i + 1}-1 ES{f}" for i, f in enumerate((18, 38, 70, 120, 200))
+)
+FREQS = (18000.0, 38000.0, 70000.0, 120000.0, 200000.0)
+C, P, R = 5, 5000, 4000
+RANGE_BIN_M, PING_BIN_S = 20.0, 20
+SUM_RTOL, MVBS_ATOL_DB = 1e-5, 1e-4
+E2E_PINGS = (10_000, 10_000, 5_000)  # files A, B (uniform dr) and C (dr by ping)
+
+
+def say(phase, **fields):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()), flush=True)
+
+
+def cuda_ms(fn, reps=20, warmup=3):
+    """Median per-call device time of ``fn`` (CUDA events), in ms."""
+    for _ in range(warmup):
+        fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def chunk_inputs(seed, vary_dr):
+    """One survey chunk at the main path's shape, made from ``seed``."""
+    rng = np.random.default_rng(seed)
+    power = rng.integers(-12000, -2000, (C, P, R), dtype=np.int16)
+    dr = np.full((C, P), 256e-6 * 1480.0 / 2.0, "f4")  # 0.18944 m
+    if vary_dr:
+        dr = (dr * rng.uniform(0.97, 1.03, (C, P))).astype("f4")
+    shift = (2.0 * dr).astype("f4")
+    ab = np.tile(rng.uniform(0.002, 0.05, (C, 1)), (1, P)).astype("f4")
+    off = rng.normal(-30.0, 2.0, (C, P)).astype("f4")
+    vl = np.full((C, P), R, "i4")
+    vl[:, ::97] = rng.integers(0, R, vl[:, ::97].shape)  # some short pings
+    t = 7.0 + np.arange(P)  # 1 Hz pings, not aligned to the bin edges
+    ids = (t // PING_BIN_S).astype("i4")
+    x_rel = ids - ids[0]
+    W = int(x_rel[-1]) + 1
+    r_bound = R * 256e-6 * 1700.0 / 2.0  # the streamer's scanned range bound
+    edges = np.arange(0, r_bound + RANGE_BIN_M, RANGE_BIN_M).astype("f4")
+    return power, dr, shift, ab, off, vl, x_rel, edges, W
+
+
+def kernel_phase(name, uniform, seed):
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.parallel.pipeline import (
+        closed_bounds_k0_np, closed_window_counts_np, kernel_inputs_from_numpy)
+
+    args = chunk_inputs(seed, vary_dr=not uniform)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ops = kernel_inputs_from_numpy(*args, uniform=uniform, device=dev)
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    if uniform:
+        kernel, plain = wp.window_partials_uniform, wp.window_partials_uniform_plain
+    else:
+        kernel, plain = wp.window_partials, wp.window_partials_plain
+    got, again, want = kernel(**ops), kernel(**ops), plain(**ops)
+    torch.cuda.synchronize()
+    bit_identical = all(torch.equal(a, b) for a, b in zip(got, again))
+    s_k, c_k = (t.double().cpu().numpy() for t in got)
+    s_p, c_p = (t.double().cpu().numpy() for t in want)
+    counts_exact = np.array_equal(c_k, c_p)
+    if uniform:  # the survey's host closed-form counts agree too
+        power, dr, shift, _, _, vl, x_rel, edges, W = args
+        bounds, k0 = closed_bounds_k0_np(dr[:, 0], shift[:, 0], edges, R)
+        counts_exact &= np.array_equal(c_k, closed_window_counts_np(bounds, k0, vl, x_rel, W))
+    max_abs = float(np.max(np.abs(s_k - s_p)))
+    rel = np.abs(s_k - s_p) / np.where(s_p != 0, np.abs(s_p), 1.0)
+    max_rel = float(np.max(rel))
+    if uniform:  # time the call the survey makes: sums only
+        ms = cuda_ms(lambda: kernel(**ops, with_counts=False))
+        plain_ms = cuda_ms(lambda: plain(**ops, with_counts=False))
+    else:
+        ms = cuda_ms(lambda: kernel(**ops))
+        plain_ms = cuda_ms(lambda: plain(**ops))
+    power_mb = ops["power"].numel() * 2 / 1e6
+    say(name, shape=list(ops["power"].shape), W=args[-1], n_r=ops["bounds"].shape[1] - 1,
+        counts_exact=counts_exact, bit_identical=bit_identical,
+        max_abs_err=max_abs, max_rel_err=max_rel, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        power_GBps=round(power_mb / ms, 1), h2d_s=round(h2d_s, 3))
+    if not (counts_exact and bit_identical and max_rel <= SUM_RTOL):
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def write_files():
+    sys.path.insert(0, str(ROOT / "tests"))
+    from synth_ek60 import write_ek60_raw
+
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = np.datetime64("2020-01-01T00:00:00", "ns")
+    files = []
+    start_s = 0
+    for tag, n_pings, jitter in zip("ABC", E2E_PINGS, (False, False, True)):
+        path = DATA_DIR / f"SMOKE{tag}-D20200101-T000000.raw"
+        write_ek60_raw(path, n_pings=n_pings, n_samples=R, channels=CHANNELS, frequencies=FREQS,
+                       t0=t0 + np.timedelta64(start_s, "s"), seed=len(files),
+                       with_angle=False, jitter_raw0=jitter)
+        files.append(str(path))
+        start_s += n_pings
+    return files
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    name = torch.cuda.get_device_name(0)
+    say("start", card=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0], device_count=torch.cuda.device_count())
+
+    sys.path.insert(0, str(ROOT))
+    import echopype_torch as et
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.ops._build import build
+    from echopype_torch.utils.profiling import StageTimer
+
+    t0 = time.perf_counter()
+    lib, log = build("window_partials")
+    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    say("build", seconds=round(time.perf_counter() - t0, 2), library=lib.name,
+        ptxas=json.dumps(ptxas))
+
+    k1 = kernel_phase("K1", uniform=True, seed=1)
+    k2 = kernel_phase("K2", uniform=False, seed=2)
+
+    t0 = time.perf_counter()
+    files = write_files()
+    say("write_raw", files=len(files), seconds=round(time.perf_counter() - t0, 2),
+        GB=round(sum(Path(f).stat().st_size for f in files) / 1e9, 3))
+    kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", chunk_pings=P)
+    n_pings = sum(E2E_PINGS)
+    try:
+        timer = StageTimer()
+        wp.reset_launches()
+        t0 = time.perf_counter()
+        mvbs = et.run_survey_mvbs_from_raw(files, timer=timer, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(wp.LAUNCHES)
+        say("e2e_cuda", wall_s=round(wall, 3), pings_per_s=round(n_pings / wall, 1),
+            launches=json.dumps(launches), stages=json.dumps(timer.report(log=False)))
+        t0 = time.perf_counter()
+        ref = et.run_survey_mvbs_from_raw(files, device="cpu", **kw)
+        say("e2e_cpu", wall_s=round(time.perf_counter() - t0, 3))
+    finally:
+        shutil.rmtree(DATA_DIR, ignore_errors=True)
+
+    chunks = [-(-n // P) for n in E2E_PINGS]
+    want_launches = {"window_partials_uniform": chunks[0] + chunks[1],
+                     "window_partials": chunks[2]}
+    if launches != want_launches:
+        raise AssertionError(f"launch counts {launches}, expected {want_launches}")
+    g, w = np.asarray(mvbs["Sv"].values), np.asarray(ref["Sv"].values)
+    same_coords = all(
+        np.array_equal(np.asarray(mvbs.coords[k].values), np.asarray(ref.coords[k].values))
+        for k in ("channel", "ping_time", "echo_range")
+    )
+    n_x = n_pings // PING_BIN_S + 1  # pings at t0 + 1 s .. t0 + n_pings s
+    echo_range = np.asarray(mvbs.coords["echo_range"].values)
+    grid_ok = g.shape[:2] == (C, n_x) and np.array_equal(
+        echo_range, RANGE_BIN_M * np.arange(g.shape[2]))
+    same_nan = np.array_equal(np.isnan(g), np.isnan(w))
+    max_db = float(np.nanmax(np.abs(g - w)))
+    finite = float(np.isfinite(g).mean())
+    say("e2e_check", shape=list(g.shape), grid_ok=grid_ok, same_coords=same_coords,
+        same_nan_mask=same_nan, finite_share=round(finite, 4), max_abs_dB=max_db,
+        device=repr(mvbs.attrs["device"]))
+    if not (grid_ok and same_coords and same_nan and max_db <= MVBS_ATOL_DB and finite > 0.9):
+        raise AssertionError("card MVBS disagrees with the CPU run")
+
+    src = "echopype_torch/csrc/window_partials.cu"
+    table = [
+        {"name": "window_partials_uniform", "route": "cuda", "source": src,
+         "replaces": "echopype_tpu/ops/pallas_window.py:174",
+         "launches": launches["window_partials_uniform"], **k1},
+        {"name": "window_partials", "route": "cuda", "source": src,
+         "replaces": "echopype_tpu/ops/pallas_window.py:219",
+         "launches": launches["window_partials"], **k2},
+    ]
+    print(json.dumps({"kernels": table}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,33 @@
+"""Device selection for the port.
+
+Every public entry point takes ``device=`` (default ``"cuda"``) and resolves
+it here.  There is no silent fall-back: asking for CUDA where
+``torch.cuda.is_available()`` is false raises, and the CPU path is taken
+only when the caller passes ``device="cpu"``.
+
+TF32 is switched off for matmuls and cuDNN alike: the bin sums are float32
+data against 0/1 membership, and TF32 keeps ~3 decimal digits (the TPU's
+default bf16 pass cost ~1e-3 dB per bin the same way).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """Return ``device`` as a ``torch.device``; raise if it cannot run here."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device='cuda' requested but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch path"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev

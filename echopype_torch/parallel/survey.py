@@ -1,0 +1,500 @@
+"""Raw EK60 files -> survey-global MVBS bins, through the CUDA window kernels.
+
+Counterpart of the EK60/ES70 power-mode part of
+``echopype_tpu/parallel/survey.py::run_survey_mvbs_from_raw``: the
+single-pass streamer with a decode-ahead thread (``prefetch=True``, local
+files) and the eager two-pass path.  Per file, calibration parameters
+resolve on the host; each ping chunk ships as int16 to the device, where
+one fused kernel (K1 for per-channel uniform ``dr``, K2 otherwise) returns
+its [C, window, n_r] bin partials.  Sv is never materialized.  Partials
+are read back one chunk late, so the device computes chunk k+1 while the
+host adds chunk k into float64 sums.
+
+The host-to-device copies are plain synchronous ``.to(device)``; the two
+int16 staging buffers alternate, so pinned asynchronous copies can replace
+them later without a buffer being overwritten while a copy reads it.
+"""
+
+from __future__ import annotations
+
+import os
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from .._host import (
+    INDEX2POWER,
+    CorruptDatagramError,
+    Dataset,
+    _init_logger,
+    is_remote_path,
+    native,
+    open_raw,
+    scan_ek_extent,
+)
+from ..calibrate.ek import CalibrateEK60
+from ..commongrid.utils import _parse_x_bin, ping_time_bin_edges
+from ..device import resolve_device
+from ..utils.compute import _lin2log
+from ..utils.profiling import StageTimer
+from .pipeline import (
+    closed_bounds_k0_np,
+    closed_window_counts_np,
+    sv_mvbs_window_partials,
+    sv_mvbs_window_partials_uniform,
+)
+
+logger = _init_logger(__name__)
+
+__all__ = ["run_survey_mvbs_from_raw"]
+
+
+class _PartialAccumulator:
+    """Host float64 accumulator over window partials with one chunk of lag.
+
+    CUDA launches return at once: by deferring each chunk's readback until
+    the next chunk has been launched, the device computes chunk k+1 while
+    the host waits on chunk k's result.
+    """
+
+    def __init__(self, n_ch, n_x, n_r, window, timer):
+        self.sums = np.zeros((n_ch, n_x, n_r), dtype="f8")
+        self.counts = np.zeros_like(self.sums)
+        self.window = window
+        self.n_x = n_x
+        self.timer = timer
+        self._pending = None
+
+    def push(self, s, c, x_base):
+        prev, self._pending = self._pending, (s, c, x_base)
+        if prev is not None:
+            self._drain(prev)
+
+    def _drain(self, item):
+        s, c, x_base = item
+        with self.timer.stage("accumulate"):
+            s = s.cpu().numpy() if isinstance(s, torch.Tensor) else s
+            c = c.cpu().numpy() if isinstance(c, torch.Tensor) else c
+            w_eff = min(self.window, self.n_x - x_base)
+            self.sums[:, x_base : x_base + w_eff] += s[:, :w_eff]
+            self.counts[:, x_base : x_base + w_eff] += c[:, :w_eff]
+
+    def finish(self):
+        if self._pending is not None:
+            self._drain(self._pending)
+            self._pending = None
+        return self.sums, self.counts
+
+
+def _global_ping_bins(pt_i8, ping_edges_i8, n_x):
+    """Clip ping timestamps into global ping-bin ids (non-decreasing)."""
+    pt_i8 = np.asarray(pt_i8, dtype="i8")
+    if pt_i8.size > 1 and np.any(np.diff(pt_i8) < 0):
+        raise ValueError(
+            "ping_time must be non-decreasing for survey streaming; repair "
+            "reversed timestamps first (qc.coerce_increasing_time)"
+        )
+    return np.clip(
+        np.searchsorted(ping_edges_i8, pt_i8, side="right") - 1, 0, n_x - 1
+    ).astype("i4")
+
+
+def _widest_window(x_ids, chunk_pings):
+    """Most ping bins any chunk of any file spans (the kernels' static W)."""
+    window = 1
+    for x in x_ids:
+        for lo in range(0, len(x), chunk_pings):
+            hi = min(lo + chunk_pings, len(x))
+            window = max(window, int(x[hi - 1] - x[lo]) + 1)
+    return window
+
+
+class _ScanUnavailable(Exception):
+    """Extent scan could not cover this survey; use the eager two-pass path."""
+
+
+def _sanitize_power_cal_inputs(power, *params):
+    """Make kernel inputs NaN-safe with compute_Sv's exact semantics.
+
+    Every (channel, ping) with a NaN parameter gets its power row forced to
+    NaN (so its valid length is 0 and it joins no bin), and the parameter
+    NaNs are replaced by a finite per-channel value (1.0 when a channel has
+    none) purely to keep the bin bounds and k0 finite.
+    """
+    power = np.asarray(power)
+    params = [np.asarray(a) for a in params]
+    bad = None
+    for a in params:
+        nan = np.isnan(a)
+        if nan.any():
+            bad = nan if bad is None else (bad | nan)
+    if bad is None:
+        return (power, *params)
+    with np.errstate(invalid="ignore"):
+        present = ~np.isnan(power).all(axis=-1)
+    kill = bad & present
+    if kill.any():
+        power = power.astype("f4", copy=True) if power.dtype.kind != "f" else power.copy()
+        power[kill] = np.nan
+    out = []
+    for a in params:
+        nan = np.isnan(a)
+        if nan.any():
+            a = a.copy()
+            for c in range(a.shape[0]):
+                if nan[c].any():
+                    finite = a[c][~nan[c]]
+                    a[c][nan[c]] = finite[0] if finite.size else 1.0
+        out.append(a)
+    return (power, *out)
+
+
+def _resolve_bin_m(range_bin, range_bin_m) -> float:
+    """'20m' strings are the primary spelling; a bare float in metres and
+    ``range_bin_m=`` are the deprecated aliases of the JAX package."""
+    if range_bin_m is not None:
+        return float(range_bin_m)
+    if isinstance(range_bin, str):
+        return _parse_x_bin(range_bin)
+    return float(range_bin)
+
+
+class _PowerChunkStreamer:
+    """Per-file chunk loop shared by the streamed and eager paths.
+
+    Converts dB power back to its int16 sample indices in two alternating
+    reusable buffers, pads the last chunk (padded pings have valid length
+    0 and park past the window), and launches the chunk's kernel.
+    """
+
+    def __init__(self, n_ch, chunk_pings, R_max, window, n_r, range_edges, acc, timer,
+                 device):
+        self.chunk_pings = chunk_pings
+        self.window = window
+        self.n_r = n_r
+        self.r_edges_f4 = np.asarray(range_edges, dtype="f4")
+        self.acc = acc
+        self.timer = timer
+        self.device = device
+        self.chunk_no = 0
+        self.inv_scale = np.float32(1.0) / np.float32(INDEX2POWER)
+        self.buf_f = np.empty((n_ch, chunk_pings, R_max), dtype="f4")
+        self.bufs_i = [np.empty((n_ch, chunk_pings, R_max), dtype="<i2") for _ in range(2)]
+
+    def _to_i16(self, power, sl, n):
+        """Rows ``sl`` of dB power -> int16 indices in the next staging buffer
+        (NaN -> 0; masked by the valid length)."""
+        bi = self.bufs_i[self.chunk_no % 2][:, :, : power.shape[2]]
+        self.chunk_no += 1
+        done = isinstance(power, np.ndarray) and all(
+            native.f32_to_i16_scaled(np.asarray(power[c, sl]), bi[c, :n], float(self.inv_scale))
+            for c in range(power.shape[0])
+        )
+        if not done:  # numpy chain, bit-identical to the native one-pass
+            bf = self.buf_f[:, :n, : power.shape[2]]
+            np.multiply(power[:, sl], self.inv_scale, out=bf)
+            np.rint(bf, out=bf)
+            np.nan_to_num(bf, copy=False)
+            bi[:, :n] = bf
+        bi[:, n:] = 0
+        return bi
+
+    def stream_file(self, power, dr, shift, alpha, offset, x_idx_all, uniform):
+        """Stream one file's chunks.  Uniform files run K1 with host
+        closed-form counts; the others run K2, which also counts."""
+        timer, acc, chunk_pings, window = self.timer, self.acc, self.chunk_pings, self.window
+        n_ping = power.shape[1]
+        host_counts = (
+            closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
+            if uniform else None
+        )
+        # ragged pings pad with a NaN suffix, so finite-count == valid length
+        valid_len = (~np.isnan(power)).sum(axis=2).astype("i4")
+        for lo in range(0, n_ping, chunk_pings):
+            hi = min(lo + chunk_pings, n_ping)
+            pad = chunk_pings - (hi - lo)
+            sl = slice(lo, hi)
+            x_base = int(x_idx_all[lo])
+
+            def _pad2(a, fill=0.0):
+                a = np.asarray(a[:, sl], dtype="f4")
+                return np.pad(a, ((0, 0), (0, pad)), constant_values=fill) if pad else a
+
+            with timer.stage("to_int16"):
+                p_chunk = self._to_i16(power, sl, hi - lo)
+            x_rel = np.pad(x_idx_all[sl] - x_base, (0, pad), constant_values=window)
+            vl_chunk = np.pad(valid_len[:, sl], ((0, 0), (0, pad)))
+            args = (p_chunk, _pad2(dr, 1.0), _pad2(shift), _pad2(alpha), _pad2(offset),
+                    vl_chunk, x_rel.astype("i4"), self.r_edges_f4, window, self.n_r)
+            with timer.stage("device_mvbs"):
+                if uniform:
+                    s = sv_mvbs_window_partials_uniform(
+                        *args, with_counts=False, device=self.device
+                    )
+                    c = closed_window_counts_np(
+                        host_counts[0], host_counts[1], vl_chunk, x_rel, window
+                    )
+                else:
+                    s, c = sv_mvbs_window_partials(*args, device=self.device)
+            acc.push(s, c, x_base)
+
+
+def _is_uniform(dr, shift):
+    return bool(np.all(dr == dr[:, :1]) and np.all(shift == shift[:, :1]))
+
+
+def _device_name(dev):
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def _finalize(sums, counts, chans, ping_edges, echo_range, timer, dev):
+    with timer.stage("finalize"):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            mvbs = np.where(counts > 0, _lin2log(sums / np.maximum(counts, 1)), np.nan)
+        out = Dataset(
+            coords={
+                "channel": np.asarray(chans, dtype=object),
+                "ping_time": ping_edges[:-1],
+                "echo_range": echo_range,
+            }
+        )
+        out["Sv"] = (("channel", "ping_time", "echo_range"), mvbs)
+        out.attrs["stage_timing"] = str(timer.report(log=False))
+        out.attrs["device"] = _device_name(dev)
+    return out
+
+
+def run_survey_mvbs_from_raw(
+    raw_files,
+    sonar_model: str = "EK60",
+    range_bin="20m",
+    ping_time_bin: str = "20s",
+    chunk_pings: int = 5000,
+    env_params=None,
+    cal_params=None,
+    use_swap="auto",
+    xml_path=None,
+    timer: StageTimer = None,
+    mesh=None,
+    waveform_mode=None,
+    encode_mode=None,
+    device_fused: bool = False,
+    prefetch: bool = True,
+    freq_diff=None,
+    workers: int = 0,
+    noise_masks=None,
+    range_bin_m: float = None,
+    device="cuda",
+):
+    """Stream raw EK60/ES70 files straight into survey-global MVBS bins.
+
+    The arguments are the JAX package's; ``device`` ("cuda" by default,
+    "cpu" for the plain PyTorch path) is where the window step runs.
+    ``prefetch=True`` on local files runs the single-pass streamer (a
+    header-only extent scan fixes the bin grids; each file decodes on a
+    background thread while the previous one streams); otherwise, or when
+    the scan cannot cover the survey, the eager two-pass path runs.  Both
+    give the same bins.
+
+    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): other
+    sonar models (EK80 power/complex, AZFP), ``waveform_mode`` /
+    ``encode_mode`` / ``device_fused`` (complex and broadband), ``mesh``,
+    ``freq_diff``, ``noise_masks`` and ``workers``.
+
+    Returns an MVBS Dataset on the global (ping_time bin, range bin) grid;
+    ``attrs["device"]`` names the device and ``attrs["stage_timing"]`` holds
+    the host wall time per stage.
+    """
+    unported = {
+        "mesh": mesh is not None, "freq_diff": freq_diff is not None,
+        "noise_masks": noise_masks is not None, "workers": bool(workers),
+        "waveform_mode": waveform_mode is not None, "encode_mode": encode_mode is not None,
+        "device_fused": bool(device_fused),
+    }
+    if sonar_model not in ("EK60", "ES70"):
+        if sonar_model in ("EK80", "ES80", "EA640", "AZFP", "AZFP6"):
+            raise NotImplementedError(
+                f"{sonar_model} survey streaming is not ported to echopype_torch yet "
+                "(ROADMAP Queue 1); use echopype_tpu"
+            )
+        raise ValueError(
+            f"run_survey_mvbs_from_raw supports EK60/ES70 power mode, not {sonar_model!r}"
+        )
+    asked = [k for k, v in unported.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"{', '.join(asked)}: not ported to echopype_torch yet (ROADMAP Queue 1)"
+        )
+    dev = resolve_device(device)
+    range_bin_m = _resolve_bin_m(range_bin, range_bin_m)
+    timer = timer or StageTimer()
+    raw_files = list(raw_files)
+    if not raw_files:
+        raise ValueError("no raw files provided")
+
+    def make_cal(ed):
+        return CalibrateEK60(ed, env_params, cal_params)
+
+    if prefetch:
+        try:
+            return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
+                                 chunk_pings, env_params, use_swap, xml_path, timer,
+                                 make_cal, dev)
+        except _ScanUnavailable as e:
+            logger.warning(f"extent scan unavailable ({e}); using eager two-pass ingest")
+    return _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
+                      use_swap, xml_path, timer, make_cal, dev)
+
+
+def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
+    """Decode one file and resolve its sonar-equation inputs (host)."""
+    ed = open_raw(f, sonar_model=sonar_model, use_swap=use_swap, xml_path=xml_path)
+    try:
+        cal = make_cal(ed)
+    except Exception as e:  # noqa: BLE001 - surface actionable guidance
+        raise ValueError(f"{f}: could not set up power-mode calibration ({e!r}).") from e
+    pt = np.asarray(cal.beam.coords["ping_time"].values, dtype="datetime64[ns]")
+    chans = list(cal.beam.coords["channel"].values)
+    power, dr, shift, alpha, offset, _ = cal._power_cal_inputs("Sv")
+    power, dr, shift, alpha, offset = _sanitize_power_cal_inputs(power, dr, shift, alpha, offset)
+    return power, dr, shift, alpha, offset, pt, chans
+
+
+def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
+               use_swap, xml_path, timer, make_cal, dev):
+    """Two-pass path: decode every file, fix the global grids, then stream."""
+    loaded = []
+    with timer.stage("ingest"):
+        for f in raw_files:
+            loaded.append(_load_inputs(f, sonar_model, use_swap, xml_path, make_cal))
+    chans = loaded[0][6]
+    if any(item[6] != chans for item in loaded[1:]):
+        raise ValueError("all raw files must share the same channels")
+
+    t_min = min(item[5].min() for item in loaded)
+    t_max = max(item[5].max() for item in loaded)
+    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
+                                     ping_time_bin)
+    # the last SAMPLE is at (R-1)*dr
+    r_max = max(float(np.nanmax(item[1])) * (item[0].shape[2] - 1) for item in loaded)
+    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
+    n_x, n_r = len(ping_edges) - 1, len(range_edges) - 1
+
+    ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
+    x_ids = [_global_ping_bins(item[5].astype("i8"), ping_edges_i8, n_x) for item in loaded]
+    window = _widest_window(x_ids, chunk_pings)
+
+    acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
+    R_max = max(item[0].shape[2] for item in loaded)
+    streamer = _PowerChunkStreamer(len(chans), chunk_pings, R_max, window, n_r,
+                                   range_edges, acc, timer, dev)
+    for (power, dr, shift, alpha, offset, _, _), x_idx_all in zip(loaded, x_ids):
+        streamer.stream_file(power, dr, shift, alpha, offset, x_idx_all,
+                             _is_uniform(dr, shift))
+    sums, counts = acc.finish()
+    return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
+
+
+def _warm(f):
+    """Ask the kernel to read file ``f`` ahead (costs no host CPU)."""
+    try:
+        fd = os.open(str(f), os.O_RDONLY)
+        try:
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_WILLNEED)
+        finally:
+            os.close(fd)
+    except (OSError, AttributeError):
+        pass
+
+
+def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
+                  env_params, use_swap, xml_path, timer, make_cal, dev):
+    """Single-pass streamer with a decode-ahead thread.
+
+    Pass 0 is a header-only extent scan: the unique RAW0 timestamps are the
+    decoded ping_time union, so the global ping bins are exact, and the
+    recorded sample counts / intervals / sound speeds bound the range grid.
+    Kernels run on the bound; the exact survey grid (a prefix of it) is
+    trimmed at finalize.  Raises _ScanUnavailable when any file is remote,
+    corrupt or has no RAW0 data.  The "ingest" stage is timed on the worker
+    thread and overlaps the other stages.
+    """
+    if any(is_remote_path(f) for f in raw_files):
+        raise _ScanUnavailable("remote raw files")
+    with timer.stage("scan"):
+        try:
+            scans = [scan_ek_extent(f) for f in raw_files]
+        except (CorruptDatagramError, OSError) as e:
+            raise _ScanUnavailable(str(e)) from e
+    if any(len(s.times) == 0 for s in scans):
+        raise _ScanUnavailable("file with no RAW0 datagrams")
+
+    t_min = min(s.times[0] for s in scans)
+    t_max = max(s.times[-1] for s in scans)
+    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
+                                     ping_time_bin)
+    n_x = len(ping_edges) - 1
+
+    # range-grid bound covering any resolved sound speed (user/env/measured)
+    c_bound = max(1700.0, *(s.max_sound_velocity for s in scans))
+    if env_params and isinstance(env_params.get("sound_speed"), (int, float)):
+        c_bound = max(c_bound, float(env_params["sound_speed"]))
+    r_bound = (
+        max(s.max_count for s in scans) * max(s.max_interval for s in scans) * c_bound / 2.0
+    )
+    range_edges = np.arange(0, r_bound + range_bin_m, range_bin_m)
+    n_r = len(range_edges) - 1
+
+    ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
+    x_ids = [_global_ping_bins(s.times.astype("i8"), ping_edges_i8, n_x) for s in scans]
+    window = _widest_window(x_ids, chunk_pings)
+
+    def load(f):
+        with timer.stage("ingest"):
+            return _load_inputs(f, sonar_model, use_swap, xml_path, make_cal)
+
+    acc = streamer = chans0 = None
+    r_max_true = 0.0
+    with ThreadPoolExecutor(max_workers=1) as ex, ThreadPoolExecutor(max_workers=1) as warm_ex:
+        fut = ex.submit(load, raw_files[0])
+        if len(raw_files) > 1:
+            warm_ex.submit(_warm, raw_files[1])
+        for i in range(len(raw_files)):
+            power, dr, shift, alpha, offset, pt, chans = fut.result()
+            if i + 1 < len(raw_files):
+                fut = ex.submit(load, raw_files[i + 1])
+            if i + 2 < len(raw_files):
+                warm_ex.submit(_warm, raw_files[i + 2])
+            if not np.array_equal(pt, scans[i].times):
+                raise RuntimeError(
+                    f"{raw_files[i]}: decoded ping_time disagrees with the "
+                    "extent scan; rerun with prefetch=False"
+                )
+            if chans0 is None:
+                chans0 = chans
+                acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
+                streamer = _PowerChunkStreamer(
+                    len(chans), chunk_pings, max(s.max_count for s in scans),
+                    window, n_r, range_edges, acc, timer, dev,
+                )
+            elif chans != chans0:
+                raise ValueError("all raw files must share the same channels")
+            # the last SAMPLE is at (R-1)*dr
+            r_max_true = max(r_max_true, float(np.nanmax(dr)) * (power.shape[2] - 1))
+            if r_max_true > range_edges[-1]:
+                raise RuntimeError(
+                    f"{raw_files[i]}: resolved echo range {r_max_true:.1f} m "
+                    f"exceeds the scanned bound {range_edges[-1]:.1f} m; "
+                    "rerun with prefetch=False"
+                )
+            streamer.stream_file(power, dr, shift, alpha, offset, x_ids[i],
+                                 _is_uniform(dr, shift))
+    sums, counts = acc.finish()
+
+    # exact survey grid = prefix of the scanned bound grid
+    n_r_true = min(
+        n_r, max(1, len(np.arange(0, r_max_true + range_bin_m, range_bin_m)) - 1)
+    )
+    return _finalize(sums[:, :, :n_r_true], counts[:, :, :n_r_true], chans0, ping_edges,
+                     range_edges[: n_r_true + 1][:-1], timer, dev)

@@ -1,0 +1,73 @@
+"""The port must run where neither jax nor pandas is installed.
+
+A subprocess refuses ``jax``, ``jaxlib`` and ``pandas`` from a
+``sys.meta_path`` finder, imports echopype_torch and runs the raw->MVBS
+survey on the CPU; neither module may be loaded afterwards.  The package's
+sources must not import them either.
+"""
+
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+
+_SCRIPT = textwrap.dedent(
+    """
+    import importlib.abc
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "pandas")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if name.split(".")[0] in BLOCKED:
+                raise ModuleNotFoundError(f"refused in this test: {name}")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+
+    import numpy as np
+    import torch
+
+    torch.set_num_threads(1)
+    import echopype_torch as et
+    from synth_ek60 import write_ek60_raw
+
+    path = sys.argv[2]
+    write_ek60_raw(path, n_pings=30, n_samples=200, with_angle=False, jitter_raw0=True)
+    mvbs = et.run_survey_mvbs_from_raw([path], range_bin="5m", ping_time_bin="10s",
+                                       chunk_pings=16, device="cpu")
+    sv = et.calibrate.compute_Sv(et.open_raw(path, sonar_model="EK60"), device="cpu")
+    assert np.isfinite(mvbs["Sv"].values).any() and sv["Sv"].values.shape == (2, 30, 200)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+    print("LOADED", loaded)
+    """
+)
+
+
+def test_port_runs_without_jax_or_pandas(tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-c", _SCRIPT, str(REPO), str(tmp_path / "g-D20200101-T000000.raw")],
+        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+    )
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert "LOADED []" in res.stdout
+
+
+def test_sources_never_import_jax_or_pandas():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pandas)\b", re.M)
+    offenders = [
+        str(p.relative_to(REPO))
+        for p in sorted((REPO / "echopype_torch").rglob("*.py"))
+        if pattern.search(p.read_text())
+    ]
+    assert offenders == []
+    assert not pattern.search((REPO / "chip_smoke.py").read_text())
