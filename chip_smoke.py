@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive echopype_torch's EK60 raw -> Sv -> MVBS survey path once on a CUDA card.
+"""Drive echopype_torch's survey and Sv-grid paths once on a CUDA card.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA card (H100), nvcc and PyTorch built for CUDA:
@@ -10,20 +10,36 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
 
 1. start: the card's name and power limit (nvidia-smi), torch / CUDA versions;
    fails at once where ``torch.cuda.is_available()`` is false;
-2. build the CUDA kernels from ``echopype_torch/csrc/`` (nvcc), timed;
+2. build the CUDA kernels from ``echopype_torch/csrc/`` (one nvcc per
+   source, all started together), timed;
 3. K1 (``window_partials_uniform``) at the survey's chunk shape (5 channels x
    5,000 pings x 4,000 int16 samples, 20 m range bins at dr ~0.19 m, 251
    twenty-second ping bins) against its plain PyTorch twin on the card:
    counts exact, sums within rtol 1e-5, two kernel runs bit-identical, both
    timed with CUDA events (median of 20);
 4. K2 (``window_partials``) the same way, with dr varying by ping;
-5. end to end: three synthetic EK60 files (5 channels, 18-200 kHz, 4,000
-   samples a ping; two of 10,000 pings, one of 5,000 whose sound speed varies
-   by ping, so it takes K2) through ``run_survey_mvbs_from_raw`` on the card;
-   the kernels' launch counters must equal the chunks each path took, and
-   the MVBS must agree with the same call on the CPU (plain twins) within
-   1e-4 dB with identical NaN masks and coordinates;
-6. print the kernel table as one JSON line, then the result line
+5. K3 (``sv_bin_partials``) at the full width, 5 x 5,000 x 4,000 float32
+   dB power with a NaN suffix on every 97th ping and scattered interior
+   NaNs, dr 0.18944 m, 20 m range bins, against its plain twin on the card:
+   Sv within rtol 1e-5 / atol 1e-5 with identical NaN masks, counts exact,
+   sums within rtol 1e-5, two runs bit-identical, both timed;
+6. K4 (``mvbs_partials``) the same way for the partials;
+7. the survey end to end: three synthetic EK60 files (5 channels,
+   18-200 kHz, 4,000 samples a ping; two of 10,000 pings, one of 5,000 whose
+   sound speed varies by ping, so it takes K2) through
+   ``run_survey_mvbs_from_raw`` on the card; the K1/K2 launch counters must
+   equal the chunks each path took, and the MVBS must agree with the same
+   call on the CPU (plain twins) within 1e-4 dB with identical NaN masks
+   and coordinates;
+8. the Sv grids end to end on file A: ``open_raw`` -> ``compute_Sv`` on the
+   card -> ``compute_MVBS`` (20 m x 20 s) and ``compute_NASC`` (depth and
+   synthetic positions attached), each against the same call on the CPU
+   (1e-4 dB, NASC rtol 1e-5, identical NaN masks); and
+   ``survey_pipeline_step`` with and without Sv (K3, K4) on the same file's
+   calibration inputs and compute_MVBS's grid: K3's Sv equals compute_Sv's
+   (rtol/atol 1e-5, same NaN mask), its MVBS equals compute_MVBS's within
+   1e-4 dB, K4's MVBS equals K3's within 1e-3 dB, one launch each;
+9. print the kernel table as one JSON line, then the result line
    ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX.  The synthetic files are written under ``build/``
@@ -36,6 +52,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -50,7 +67,10 @@ FREQS = (18000.0, 38000.0, 70000.0, 120000.0, 200000.0)
 C, P, R = 5, 5000, 4000
 RANGE_BIN_M, PING_BIN_S = 20.0, 20
 SUM_RTOL, MVBS_ATOL_DB = 1e-5, 1e-4
+SV_RTOL = SV_ATOL = 1e-5  # tests/test_parallel.py:63; one f32 ulp at -90 dB is 7.6e-6
+K4_VS_K3_DB, NASC_RTOL = 1e-3, 1e-5
 E2E_PINGS = (10_000, 10_000, 5_000)  # files A, B (uniform dr) and C (dr by ping)
+KERNEL_SOURCES = ("window_partials", "sv_bin_partials")
 
 
 def say(phase, **fields):
@@ -136,6 +156,170 @@ def kernel_phase(name, uniform, seed):
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
 
 
+def fused_inputs(seed):
+    """K3/K4 operands at the full width: float32 dB power, NaN-padded."""
+    rng = np.random.default_rng(seed)
+    power = rng.normal(-90.0, 12.0, (C, P, R)).astype("f4")
+    for p in range(0, P, 97):  # a NaN suffix (ragged ping) on every 97th ping
+        power[:, p, int(rng.integers(0, R)):] = np.nan
+    power[rng.random((C, P, R), dtype=np.float32) < 1e-3] = np.nan  # interior NaNs
+    dr = np.full((C, P), 256e-6 * 1480.0 / 2.0, "f4")  # 0.18944 m
+    shift = (2.0 * dr).astype("f4")
+    ab = np.tile(rng.uniform(0.002, 0.05, (C, 1)), (1, P)).astype("f4")
+    off = rng.normal(-30.0, 2.0, (C, P)).astype("f4")
+    ids = ((7.0 + np.arange(P)) // PING_BIN_S).astype("i4")
+    x_idx = ids - ids[0]
+    r_edges = np.arange(0, R * float(dr[0, 0]) + RANGE_BIN_M, RANGE_BIN_M).astype("f4")
+    return power, dr, shift, ab, off, x_idx, r_edges, int(x_idx[-1]) + 1, len(r_edges) - 1
+
+
+def fused_phase(name, with_sv, seed):
+    from echopype_torch.ops import sv_bin_partials as sbp
+
+    ops, _ = sbp.fused_operands(*fused_inputs(seed), device="cuda")
+    if with_sv:
+        kernel, plain = sbp.sv_bin_partials, sbp.sv_bin_partials_plain
+    else:
+        kernel, plain = sbp.mvbs_partials, sbp.mvbs_partials_plain
+    got, again, want = kernel(**ops), kernel(**ops), plain(**ops)
+    torch.cuda.synchronize()
+    # bitwise, so that NaN Sv compares equal to itself
+    bit_identical = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got, again))
+    fields = {}
+    sv_ok = True
+    if with_sv:
+        sv_k, sv_p = got[0], want[0]
+        same_nan = torch.equal(torch.isnan(sv_k), torch.isnan(sv_p))
+        sv_err = float((sv_k - sv_p).abs().nan_to_num(0.0).max())
+        sv_ok = same_nan and torch.allclose(sv_k, sv_p, rtol=SV_RTOL, atol=SV_ATOL,
+                                            equal_nan=True)
+        fields = {"sv_same_nan": same_nan, "sv_max_abs_dB": sv_err}
+        del sv_k, sv_p
+    s_k, c_k = (t.double().cpu().numpy() for t in got[-2:])
+    s_p, c_p = (t.double().cpu().numpy() for t in want[-2:])
+    del got, again, want
+    counts_exact = np.array_equal(c_k, c_p)
+    max_abs = float(np.max(np.abs(s_k - s_p)))
+    max_rel = float(np.max(np.abs(s_k - s_p) / np.where(s_p != 0, np.abs(s_p), 1.0)))
+    ms = cuda_ms(lambda: kernel(**ops))
+    plain_ms = cuda_ms(lambda: plain(**ops))
+    power_mb = ops["power"].numel() * 4 / 1e6
+    say(name, shape=list(ops["power"].shape), n_r=ops["bounds"].shape[1] - 1,
+        counts_exact=counts_exact, bit_identical=bit_identical, **fields,
+        max_abs_err=max_abs, max_rel_err=max_rel, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        power_GBps=round(power_mb / ms, 1),
+        moved_GBps=round(power_mb * (2 if with_sv else 1) / ms, 1))
+    if not (sv_ok and counts_exact and bit_identical and max_rel <= SUM_RTOL):
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+
+
+def sv_grid_step_inputs(ed, ds_Sv, range_bin_m=RANGE_BIN_M, ping_time_bin=f"{PING_BIN_S}s"):
+    """The survey step's operands on compute_MVBS's grid, from one EchoData.
+
+    Calibration inputs as compute_Sv folds them (``_power_cal_inputs``),
+    float32; ping-bin ids of compute_MVBS's ping-time edges; range edges
+    ``arange(0, max echo_range + bin, bin)`` in float32.  Returns
+    (step arguments, n_x, n_r).
+    """
+    from echopype_torch.calibrate.ek import CalibrateEK60
+    from echopype_torch.commongrid.utils import ping_time_bin_edges
+    from echopype_torch.ops.binning import bin_index_np
+
+    power, dr, shift, alpha, offset, _ = CalibrateEK60(ed, device="cpu")._power_cal_inputs("Sv")
+    er = np.asarray(ds_Sv["echo_range"].values, dtype="f8")
+    r_edges = np.arange(0, np.nanmax(er) + range_bin_m, range_bin_m).astype("f4")
+    pt = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]")
+    edges = ping_time_bin_edges(pt, ping_time_bin).astype("i8")
+    x_idx = bin_index_np(pt.astype("i8"), edges)
+    args = tuple(np.ascontiguousarray(a, dtype="f4") for a in (power, dr, shift, alpha, offset))
+    return (*args, x_idx, r_edges), len(edges) - 1, len(r_edges) - 1
+
+
+def attach_depth_and_positions(ds_Sv):
+    """depth = echo_range and a synthetic track, as the JAX package's NASC
+    dry run does (__graft_entry__.py::_dryrun_mesh_nasc)."""
+    n = ds_Sv.sizes["ping_time"]
+    ds_Sv["depth"] = (("channel", "ping_time", "range_sample"),
+                      np.asarray(ds_Sv["echo_range"].values).copy())
+    ds_Sv["latitude"] = (("ping_time",), 45.0 + np.arange(n) * 3e-5)
+    ds_Sv["longitude"] = (("ping_time",), np.full(n, -125.0))
+    return ds_Sv
+
+
+def _max_db(a, b):
+    a, b = np.asarray(a, dtype="f8"), np.asarray(b, dtype="f8")
+    return float(np.nanmax(np.abs(a - b))), bool(np.array_equal(np.isnan(a), np.isnan(b)))
+
+
+def sv_grid_phase(path):
+    """open_raw -> compute_Sv -> compute_MVBS / compute_NASC / the survey
+    step (K3, K4) on the card; returns the K3/K4 launches of the run."""
+    import echopype_torch as et
+    from echopype_torch.ops import sv_bin_partials as sbp
+    from echopype_torch.ops import window_partials as wp
+
+    stages = {}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[stage] = round(time.perf_counter() - t0, 4)
+        return out
+
+    grid = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s")
+    sbp.reset_launches()
+    wp.reset_launches()
+    ed = timed("open_raw", lambda: et.open_raw(path, sonar_model="EK60"))
+    ds_Sv = timed("compute_Sv", lambda: et.calibrate.compute_Sv(ed, device="cuda"))
+    mvbs = timed("compute_MVBS", lambda: et.compute_MVBS(ds_Sv, **grid))
+    mvbs_cpu = timed("compute_MVBS_cpu", lambda: et.compute_MVBS(ds_Sv, device="cpu", **grid))
+    args, n_x, n_r = timed("step_inputs", lambda: sv_grid_step_inputs(ed, ds_Sv))
+    sv3, m3 = timed("step_K3", lambda: et.survey_pipeline_step(None, n_x, n_r)(*args))
+    m4 = timed("step_K4", lambda: et.survey_pipeline_step(None, n_x, n_r, with_sv=False)(*args))
+    ds_Sv = attach_depth_and_positions(ds_Sv)
+    nasc = timed("compute_NASC", lambda: et.compute_NASC(ds_Sv))
+    launches = {**sbp.LAUNCHES, **wp.LAUNCHES}
+    nasc_cpu = timed("compute_NASC_cpu", lambda: et.compute_NASC(ds_Sv, device="cpu"))
+
+    sv_ref = torch.from_numpy(np.asarray(ds_Sv["Sv"].values, dtype="f4")).to(sv3.device)
+    sv_same_nan = torch.equal(torch.isnan(sv3), torch.isnan(sv_ref))
+    sv_err = float((sv3 - sv_ref).abs().nan_to_num(0.0).max())
+    sv_ok = sv_same_nan and torch.allclose(sv3, sv_ref, rtol=SV_RTOL, atol=SV_ATOL,
+                                           equal_nan=True)
+    del sv3, sv_ref
+    g_mvbs = np.asarray(mvbs["Sv"].values)
+    k3_db, k3_nan = _max_db(m3.cpu().numpy(), g_mvbs)
+    k4_db, k4_nan = _max_db(m4.cpu().numpy(), m3.cpu().numpy())
+    mvbs_db, mvbs_nan = _max_db(g_mvbs, mvbs_cpu["Sv"].values)
+    g_nasc, w_nasc = (np.asarray(d["NASC"].values, dtype="f8") for d in (nasc, nasc_cpu))
+    nasc_nan = bool(np.array_equal(np.isnan(g_nasc), np.isnan(w_nasc)))
+    ok_n = ~np.isnan(w_nasc)
+    nasc_rel = float(np.max(np.abs(g_nasc[ok_n] - w_nasc[ok_n]) / np.abs(w_nasc[ok_n])))
+    finite = float(np.isfinite(g_mvbs).mean())
+    say("sv_grid", pings=ds_Sv.sizes["ping_time"], mvbs_shape=list(g_mvbs.shape),
+        nasc_shape=list(g_nasc.shape), launches=json.dumps(launches),
+        k3_sv_same_nan=sv_same_nan, k3_sv_max_abs_dB=sv_err,
+        k3_vs_compute_MVBS_dB=k3_db, k4_vs_k3_dB=k4_db, mvbs_cuda_vs_cpu_dB=mvbs_db,
+        nasc_cuda_vs_cpu_rel=nasc_rel, mvbs_finite_share=round(finite, 4),
+        stages_s=json.dumps(stages))
+    checks = {
+        "K3 Sv vs compute_Sv": sv_ok,
+        "K3 MVBS vs compute_MVBS": k3_nan and k3_db <= MVBS_ATOL_DB,
+        "K4 MVBS vs K3": k4_nan and k4_db <= K4_VS_K3_DB,
+        "compute_MVBS cuda vs cpu": mvbs_nan and mvbs_db <= MVBS_ATOL_DB and finite > 0.9,
+        "compute_NASC cuda vs cpu": nasc_nan and nasc_rel <= NASC_RTOL and ok_n.any(),
+        "launches": launches == {"sv_bin_partials": 1, "mvbs_partials": 1,
+                                 "window_partials_uniform": 0, "window_partials": 0},
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"sv_grid phase failed: {failed}")
+    return launches
+
+
 def write_files():
     sys.path.insert(0, str(ROOT / "tests"))
     from synth_ek60 import write_ek60_raw
@@ -173,13 +357,18 @@ def main():
     from echopype_torch.utils.profiling import StageTimer
 
     t0 = time.perf_counter()
-    lib, log = build("window_partials")
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    say("build", seconds=round(time.perf_counter() - t0, 2), library=lib.name,
-        ptxas=json.dumps(ptxas))
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, together
+        built = list(pool.map(build, KERNEL_SOURCES))
+    ptxas = [ln.strip() for _, log in built for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    say("build", seconds=round(time.perf_counter() - t0, 2),
+        libraries=",".join(lib.name for lib, _ in built), ptxas=json.dumps(ptxas))
 
     k1 = kernel_phase("K1", uniform=True, seed=1)
     k2 = kernel_phase("K2", uniform=False, seed=2)
+    k3 = fused_phase("K3", with_sv=True, seed=3)
+    k4 = fused_phase("K4", with_sv=False, seed=4)
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     files = write_files()
@@ -200,6 +389,7 @@ def main():
         t0 = time.perf_counter()
         ref = et.run_survey_mvbs_from_raw(files, device="cpu", **kw)
         say("e2e_cpu", wall_s=round(time.perf_counter() - t0, 3))
+        sv_launches = sv_grid_phase(files[0])
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -227,6 +417,7 @@ def main():
         raise AssertionError("card MVBS disagrees with the CPU run")
 
     src = "echopype_torch/csrc/window_partials.cu"
+    src_fused = "echopype_torch/csrc/sv_bin_partials.cu"
     table = [
         {"name": "window_partials_uniform", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:174",
@@ -234,6 +425,12 @@ def main():
         {"name": "window_partials", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:219",
          "launches": launches["window_partials"], **k2},
+        {"name": "sv_bin_partials", "route": "cuda", "source": src_fused,
+         "replaces": "echopype_tpu/ops/pallas_pipeline.py:30",
+         "launches": sv_launches["sv_bin_partials"], **k3},
+        {"name": "mvbs_partials", "route": "cuda", "source": src_fused,
+         "replaces": "echopype_tpu/ops/pallas_pipeline.py:170",
+         "launches": sv_launches["mvbs_partials"], **k4},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,15 +1,30 @@
 """echopype_torch: the PyTorch / CUDA port of echopype_tpu.
 
-The survey path runs here: EK60 ``.raw`` -> ``open_raw`` -> power-mode
-calibration -> MVBS, with the fused window step as hand-written CUDA kernels
-for Hopper (``ops/window_partials.py``).  Host-only pieces (conversion,
-EchoData, parameter resolution) are reused from ``echopype_tpu`` without
+Two paths run here.  The survey path: EK60 ``.raw`` -> ``open_raw`` ->
+power-mode calibration -> MVBS, with the fused window step as hand-written
+CUDA kernels for Hopper (``ops/window_partials.py``).  The Sv path:
+``calibrate.compute_Sv`` -> ``commongrid.compute_MVBS`` / ``compute_NASC``,
+and the fused survey-processing step ``parallel.survey_pipeline_step``
+(power -> Sv and MVBS in one pass, on the CUDA kernels of
+``ops/sv_bin_partials.py``).  Host-only pieces (conversion, EchoData,
+parameter resolution, provenance) are reused from ``echopype_tpu`` without
 importing JAX (``_host.py``).  Entry points take ``device=`` ("cuda" by
 default; "cpu" runs the plain PyTorch twins of the kernels).
 """
 
-from . import calibrate  # noqa: F401
+from . import calibrate, commongrid  # noqa: F401
 from ._host import open_raw  # noqa: F401
+from .commongrid import compute_MVBS, compute_MVBS_index_binning, compute_NASC  # noqa: F401
+from .parallel import survey_pipeline_step  # noqa: F401
 from .parallel.survey import run_survey_mvbs_from_raw  # noqa: F401
 
-__all__ = ["calibrate", "open_raw", "run_survey_mvbs_from_raw"]
+__all__ = [
+    "calibrate",
+    "commongrid",
+    "compute_MVBS",
+    "compute_MVBS_index_binning",
+    "compute_NASC",
+    "open_raw",
+    "run_survey_mvbs_from_raw",
+    "survey_pipeline_step",
+]

@@ -1,7 +1,7 @@
 """The host-only modules of ``echopype_tpu`` that the port reuses.
 
 Conversion (``convert``), ``xrlite``, the native ingest, calibration
-parameter resolution and the logging/io/provenance helpers are
+parameter resolution, geodesy and the logging/io/provenance helpers are
 numpy code with no device part, so the port imports them from the JAX
 package instead of copying them.  Every such import goes through this
 module.
@@ -60,9 +60,15 @@ from echopype_tpu.convert.simrad.framing import (  # noqa: E402
     CorruptDatagramError,
     scan_ek_extent,
 )
+from echopype_tpu.utils.geodesy import pairwise_distance_nmi  # noqa: E402
 from echopype_tpu.utils.io import is_remote_path  # noqa: E402
 from echopype_tpu.utils.log import _init_logger  # noqa: E402
-from echopype_tpu.utils.prov import echopype_prov_attrs, source_files_vars  # noqa: E402
+from echopype_tpu.utils.prov import (  # noqa: E402
+    add_processing_level,
+    echopype_prov_attrs,
+    insert_input_processing_level,
+    source_files_vars,
+)
 from echopype_tpu.xrlite import DataArray, Dataset  # noqa: E402
 
 
@@ -72,12 +78,15 @@ __all__ = [
     "Dataset",
     "INDEX2POWER",
     "_init_logger",
+    "add_processing_level",
     "echopype_prov_attrs",
     "get_cal_params_EK",
     "get_env_params_EK",
+    "insert_input_processing_level",
     "is_remote_path",
     "native",
     "open_raw",
+    "pairwise_distance_nmi",
     "scan_ek_extent",
     "source_files_vars",
     "tvg_shift_meters",

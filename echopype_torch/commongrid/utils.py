@@ -1,9 +1,13 @@
-"""Host-side bin helpers for the survey path, in numpy without pandas.
+"""Host-side commongrid helpers, in numpy without pandas.
 
-Counterparts of ``echopype_tpu/commongrid/utils.py::_parse_x_bin`` and
-``::ping_time_bin_edges``.  The GPU machine has no pandas, so the ping-time
-edges reproduce pandas' ``resample`` (default ``origin="start_day"``,
-``closed="left"``) in integer nanoseconds for fixed-length bins.
+Counterpart of ``echopype_tpu/commongrid/utils.py`` (which imports pandas,
+so its helpers are copied here, not imported): bin-string parsing, the
+ping-time bin edges, along-track distance, position reduction and the
+flox fill semantics of the dB conversion.  The GPU machine has no pandas,
+so the ping-time edges reproduce pandas' ``resample`` (default
+``origin="start_day"``, ``closed="left"``) in integer nanoseconds, and
+:func:`parse_time_bin_to_value_unit` reproduces ``pd.Timedelta``'s
+resolution, both for fixed-length bins.
 """
 
 from __future__ import annotations
@@ -13,9 +17,40 @@ from fractions import Fraction
 
 import numpy as np
 
-__all__ = ["_parse_x_bin", "ping_time_bin_edges"]
+from .._host import Dataset, pairwise_distance_nmi
+from ..utils.compute import _lin2log
 
-_RANGE_BIN_PATTERN = r"([\d+]*[.,]{0,1}[\d+]*)(\s+)?(m)"
+__all__ = [
+    "POSITION_VARIABLES",
+    "X_BIN_MAP",
+    "_binned_mean_to_db",
+    "_parse_x_bin",
+    "_setup_and_validate",
+    "assign_actual_range",
+    "get_distance_from_latlon",
+    "get_reduced_positions",
+    "parse_time_bin_to_value_unit",
+    "ping_time_bin_edges",
+]
+
+POSITION_VARIABLES = ("latitude", "longitude")
+
+X_BIN_MAP = {
+    "range_bin": {
+        "name": "Range bin",
+        "unit": "m",
+        "ex": "10m",
+        "unit_label": "meters",
+        "pattern": r"([\d+]*[.,]{0,1}[\d+]*)(\s+)?(m)",
+    },
+    "dist_bin": {
+        "name": "Distance bin",
+        "unit": "nmi",
+        "ex": "0.5nmi",
+        "unit_label": "nautical miles",
+        "pattern": r"([\d+]*[.,]{0,1}[\d+]*)(\s+)?(nmi)",
+    },
+}
 
 # fixed-length pandas offset aliases -> nanoseconds
 _TIME_UNIT_NS = {
@@ -29,14 +64,29 @@ _TIME_UNIT_NS = {
 _DAY_NS = 86_400_000_000_000
 
 
-def _parse_x_bin(x_bin: str) -> float:
-    """Parse '10m' range-bin strings (reference commongrid/utils.py:305)."""
+def _parse_x_bin(x_bin: str, x_label="range_bin") -> float:
+    """Parse '10m' / '0.5nmi' strings (reference commongrid/utils.py:305)."""
+    info = X_BIN_MAP.get(x_label)
+    if info is None:
+        raise KeyError(f"x_label must be one of {list(X_BIN_MAP)}")
     if not isinstance(x_bin, str):
         raise TypeError("'x_bin' must be a string")
-    m = re.match(_RANGE_BIN_PATTERN, x_bin.strip().lower())
+    m = re.match(info["pattern"], x_bin.strip().lower())
     if m is None:
-        raise ValueError("Range bin must be in meters (e.g., '10m').")
+        raise ValueError(
+            f"{info['name']} must be in {info['unit_label']} (e.g., '{info['ex']}')."
+        )
     return float(m.group(1))
+
+
+def _setup_and_validate(ds_Sv: Dataset, range_var: str, range_bin: str, closed: str):
+    if range_var not in ("echo_range", "depth"):
+        raise ValueError("range_var must be one of 'echo_range' or 'depth'.")
+    if range_var not in ds_Sv:
+        raise ValueError(f"range_var '{range_var}' does not exist in the input dataset.")
+    if closed not in ("left", "right"):
+        raise ValueError(f"{closed} is not a valid option. Options are 'left' or 'right'.")
+    return ds_Sv, _parse_x_bin(range_bin, "range_bin")
 
 
 def _time_bin_ns(ping_time_bin: str) -> int:
@@ -70,3 +120,105 @@ def ping_time_bin_edges(ping_time: np.ndarray, ping_time_bin: str) -> np.ndarray
     n_bins = (last - start) // freq + 1
     edges = start + freq * np.arange(n_bins + 1, dtype="i8")
     return edges.astype("datetime64[ns]")
+
+
+# pandas Timedelta.resolution_string is the finest unit with a non-zero
+# component: (that component's period, the unit counted, its label), finest
+# first.  The us and ns resolutions deliberately count whole milliseconds,
+# as the reference's timedelta_units map does (commongrid/utils.py:654-698).
+_RESOLUTIONS = (
+    (1_000, 1_000_000, "millisecond"),  # "ns"
+    (1_000_000, 1_000_000, "millisecond"),  # "us"
+    (1_000_000_000, 1_000_000, "millisecond"),  # "ms"
+    (60_000_000_000, 1_000_000_000, "second"),  # "s"
+    (3_600_000_000_000, 60_000_000_000, "minute"),  # "min"
+    (_DAY_NS, 3_600_000_000_000, "hour"),  # "h"
+)
+
+
+def parse_time_bin_to_value_unit(ping_time_bin: str):
+    """'20s' -> (20, 'second'), for cell_methods attrs, without pandas.
+
+    The reference counts whole units of ``pd.Timedelta(bin)``'s resolution:
+    ``'0.5min'`` -> (30, 'second'), ``'90min'`` -> (90, 'minute'),
+    ``'24h'`` -> (1, 'day'), and a bin with a sub-millisecond part in whole
+    milliseconds (``'1500us'`` -> (1, 'millisecond')).
+    """
+    ns = _time_bin_ns(ping_time_bin)
+    for period, unit, label in _RESOLUTIONS:
+        if ns % period:
+            return ns // unit, label
+    return ns // _DAY_NS, "day"
+
+
+def get_distance_from_latlon(ds_Sv: Dataset) -> np.ndarray:
+    """Cumulative along-track distance [nmi] per ping (utils.py:210-231).
+
+    Consecutive-segment geodesic distances -> cumulative sum -> ffill/bfill,
+    replicating the reference's pandas shift(-1)/cumsum/ffill/bfill.
+    """
+    lat = np.asarray(ds_Sv["latitude"].values, dtype="f8")
+    lon = np.asarray(ds_Sv["longitude"].values, dtype="f8")
+    if not (~(np.isnan(lat) | np.isnan(lon))).any():
+        raise ValueError("All lat/lon entries are NaN!")
+    seg = pairwise_distance_nmi(lat, lon)  # seg[i] = dist(p_i, p_{i+1}); NaN-poisoned
+    valid_seg = ~np.isnan(seg)
+    dist = np.full(len(lat), np.nan)
+    dist[valid_seg] = np.cumsum(seg[valid_seg])
+    return _ffill_bfill(dist)
+
+
+def _ffill_bfill(x: np.ndarray) -> np.ndarray:
+    x = x.copy()
+    mask = np.isnan(x)
+    idx = np.where(~mask, np.arange(len(x)), 0)
+    np.maximum.accumulate(idx, out=idx)
+    x = x[idx]
+    mask = np.isnan(x)
+    if mask.any() and (~mask).any():
+        first_valid = np.argmax(~mask)
+        x[:first_valid] = x[first_valid]
+    return x
+
+
+def get_reduced_positions(ds_Sv, ds_X, x_dim, x_idx, n_x):
+    """Mean lat/lon per x bin attached to the output (utils.py:453-501).
+
+    Host float64 bincount: positions need ~1e-6 deg (the geospatial attrs
+    round to 1e-5), which a float32 device reduction cannot hold.
+    """
+    if all(v in ds_Sv for v in POSITION_VARIABLES):
+        x_idx = np.asarray(x_idx)
+        for var in POSITION_VARIABLES:
+            v = np.asarray(ds_Sv[var].values, dtype="f8")
+            ok = (x_idx >= 0) & np.isfinite(v)
+            sums = np.bincount(x_idx[ok], weights=v[ok], minlength=n_x)
+            cnts = np.bincount(x_idx[ok], minlength=n_x)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                vals = sums / np.where(cnts > 0, cnts, np.nan)
+            ds_X[var] = ((x_dim,), vals, dict(ds_Sv[var].attrs))
+    return ds_X
+
+
+def assign_actual_range(ds_MVBS: Dataset) -> Dataset:
+    """Attach the Sv 'actual_range' attribute (reference commongrid/utils.py:631-651)."""
+    sv = np.asarray(ds_MVBS["Sv"].values, dtype="f8")
+    actual_range = [round(float(np.nanmin(sv)), 2), round(float(np.nanmax(sv)), 2)]
+    return ds_MVBS.assign_attrs({"actual_range": actual_range})
+
+
+def _binned_mean_to_db(sums, counts, nan_counts, fill_value):
+    """Linear bin sums/counts -> dB, with flox's fill semantics.
+
+    flox fills bins with nothing aggregated, in the linear domain, before
+    the dB conversion (reference commongrid/utils.py:76-92): a non-positive
+    fill comes out NaN in dB, ``fill_value=None`` means NaN, and a bin whose
+    members are all NaN (``skipna=False``) was aggregated and stays NaN.
+    Only bins with counts == 0 and nan_counts == 0 take the fill.
+    """
+    with np.errstate(invalid="ignore", divide="ignore"):
+        good = (counts > 0) & (nan_counts == 0)
+        linear = np.where(good, sums / np.where(counts > 0, counts, 1), np.nan)
+        if fill_value is not None and not np.isnan(fill_value):
+            linear = np.where((counts == 0) & (nan_counts == 0), fill_value, linear)
+        return _lin2log(linear)

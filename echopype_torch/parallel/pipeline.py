@@ -1,13 +1,20 @@
-"""Survey device step: int16 power chunk -> window bin partials.
+"""Survey device steps: power -> Sv -> bin partials, on one device.
 
 Counterpart of the single-device parts of
-``echopype_tpu/parallel/pipeline.py`` that the raw->MVBS survey runs:
-``sv_mvbs_window_partials_uniform`` (per-channel uniform ``dr``, the
-instrument norm) and ``sv_mvbs_window_partials`` (``dr`` varying by ping;
-the EK case, ``r0`` = 0), plus the host helpers that fix their bin bounds.
+``echopype_tpu/parallel/pipeline.py``:
 
-Nothing is divided on the device.  The range-bin sample bounds and the
-first valid sample ``k0`` come from the host in float32, refined against
+* the raw->MVBS survey's window step: ``sv_mvbs_window_partials_uniform``
+  (per-channel uniform ``dr``, the instrument norm, K1) and
+  ``sv_mvbs_window_partials`` (``dr`` varying by ping; the EK case,
+  ``r0`` = 0, K2), plus the host helpers that fix their bin bounds;
+* the full survey-processing step ``survey_pipeline_step`` /
+  ``sharded_sv_mvbs_step``: float32 dB power -> Sv and its MVBS in one
+  pass, on K3 (with Sv) or K4 (MVBS only) for uniform ``dr``, and the plain
+  cores ``sv_mvbs_core`` (per-ping ``dr``) and ``sv_mvbs_core_mxu``.
+  Multi-device meshes wait for ROADMAP Queue 1 item 9.
+
+On the kernels' paths nothing is divided on the device.  The range-bin
+sample bounds and the first valid sample ``k0`` come from the host in float32, refined against
 exact float32 products (``_refine_bounds`` / ``_refine_k0``), so they are
 the ones the JAX package computes, bit for bit.  The window counts of the
 uniform path come from the host in closed form (``closed_window_counts_np``)
@@ -20,13 +27,27 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..ops.binning import _prefix_gather_diff
+from ..ops.sv_bin_partials import (
+    _as_f32,
+    _bin_matrix,
+    _sv_db,
+    fused_operands,
+    mvbs_core_fused,
+    sv_mvbs_core_fused,
+)
 from ..ops.window_partials import window_partials, window_partials_uniform
 
 __all__ = [
+    "_prefix_gather_diff",
     "closed_bounds_k0_np",
     "closed_k0_np",
     "closed_window_counts_np",
     "kernel_inputs_from_numpy",
+    "sharded_sv_mvbs_step",
+    "survey_pipeline_step",
+    "sv_mvbs_core",
+    "sv_mvbs_core_mxu",
     "sv_mvbs_window_partials",
     "sv_mvbs_window_partials_uniform",
 ]
@@ -216,3 +237,106 @@ def sv_mvbs_window_partials(
 def _check_n_r(ops, n_r):
     if ops["bounds"].shape[1] != n_r + 1:
         raise ValueError(f"n_r={n_r} disagrees with {ops['bounds'].shape[1]} range edges")
+
+
+# ---------------------------------------------- full survey-processing step
+def _ping_sums(s1, n1, xb):
+    xb = xb.long()[None, :, None].expand(s1.shape[0], xb.shape[0], s1.shape[2])
+    return _prefix_gather_diff(s1, xb, 1), _prefix_gather_diff(n1, xb, 1)
+
+
+def sv_mvbs_core(power, dr, tvg_shift, absorption, offset, x_idx, r_edges, n_x, n_r,
+                 device="cuda"):
+    """Single-shard fused pipeline for per-ping ``dr``: power -> Sv -> partials.
+
+    Plain torch, as the JAX package runs it in XLA: per-ping range-bin
+    bounds ``ceil(r_edges / dr)`` on the device, range and ping sums by
+    cumsum-gather-diff.  x_idx: sorted int [P] ping-bin ids (-1 = outside);
+    r_edges: f32 [n_r + 1] left-closed range-bin edges.  Returns (Sv
+    [C, P, R], sums [C, n_x, n_r], counts) float32 tensors on ``device``.
+    """
+    ops, xb = fused_operands(power, dr, tvg_shift, absorption, offset, x_idx, r_edges, n_x,
+                             n_r, device)
+    ops.pop("bounds")  # the host's first-ping bounds; this core bins each ping by its own dr
+    sv = _sv_db(**ops)
+    edges = _as_f32(r_edges, sv.device)
+    rb = torch.clamp(torch.ceil(edges[None, None, :] / ops["dr"][:, :, None]), 0, sv.shape[2])
+    ok = ~torch.isnan(sv)
+    lin = torch.where(ok, torch.pow(10.0, sv / 10.0), 0.0)
+    s1 = _prefix_gather_diff(lin, rb, 2)
+    n1 = _prefix_gather_diff(ok.to(torch.float32), rb, 2)
+    return (sv, *_ping_sums(s1, n1, xb))
+
+
+def sv_mvbs_core_mxu(power, dr, tvg_shift, absorption, offset, x_idx, r_edges, n_x, n_r,
+                     device="cuda"):
+    """The fused pipeline for per-channel-constant ``dr``, in plain torch.
+
+    The reference K3 and K4 are held to (``sv_mvbs_core_mxu`` in the JAX
+    package): range-bin sums as a batched matmul against each channel's 0/1
+    band matrix built from ``dr[:, 0]`` (host bounds, :func:`core_bounds_np`),
+    ping sums by cumsum-gather-diff.  Same arguments and returns as
+    :func:`sv_mvbs_core`.
+    """
+    ops, xb = fused_operands(power, dr, tvg_shift, absorption, offset, x_idx, r_edges, n_x,
+                             n_r, device)
+    bounds = ops.pop("bounds")
+    sv = _sv_db(**ops)
+    m = _bin_matrix(bounds, sv.shape[2])
+    ok = ~torch.isnan(sv)
+    lin = torch.where(ok, torch.pow(10.0, sv / 10.0), 0.0)
+    return (sv, *_ping_sums(torch.bmm(lin, m), torch.bmm(ok.to(torch.float32), m), xb))
+
+
+def _single_device(mesh):
+    """Accept ``None`` or a one-device, two-axis layout; raise otherwise."""
+    if mesh is None:
+        return
+    if getattr(mesh, "size", None) == 1 and "range" not in getattr(mesh, "axis_names", ()):
+        return
+    raise NotImplementedError(
+        "echopype_torch runs the survey step on one device (mesh=None); multi-device "
+        "meshes and the (ping, channel, range) step are ROADMAP Queue 1 item 9"
+    )
+
+
+def sharded_sv_mvbs_step(mesh, n_x: int, n_r: int, uniform_dr: bool = True,
+                         with_sv: bool = True, device="cuda"):
+    """Build the survey step for one device.
+
+    Returns fn(power, dr, tvg_shift, absorption, offset, x_idx, r_edges) ->
+    (Sv [C, P, R], MVBS [C, n_x, n_r]), or MVBS alone when ``with_sv`` is
+    False; MVBS is ``10 log10(sums / counts)``, NaN where a bin is empty.
+    ``uniform_dr=True`` (each channel's ``dr`` ping-invariant, the
+    instrument norm) runs K3 (:func:`sv_mvbs_core_fused`) with Sv and K4
+    (:func:`mvbs_core_fused`) without, the drop-ins of the JAX package's
+    ``sv_mvbs_core_mxu``; ``uniform_dr=False`` runs :func:`sv_mvbs_core`.
+    ``mesh`` must be ``None`` or a one-device layout (the JAX signature);
+    inputs are host arrays or tensors, outputs float32 tensors on ``device``.
+    """
+    _single_device(mesh)
+    dev = resolve_device(device)
+
+    def step(power, dr, tvg_shift, absorption, offset, x_idx, r_edges):
+        args = (power, dr, tvg_shift, absorption, offset, x_idx, r_edges, n_x, n_r)
+        sv = None
+        if not uniform_dr:
+            sv, sums, counts = sv_mvbs_core(*args, device=dev)
+        elif with_sv:
+            sv, sums, counts = sv_mvbs_core_fused(*args, device=dev)
+        else:
+            sums, counts = mvbs_core_fused(*args, device=dev)
+        mean = sums / torch.where(counts > 0, counts, 1.0)
+        mvbs = torch.where(counts > 0, 10.0 * torch.log10(mean), torch.nan)
+        return (sv, mvbs) if with_sv else mvbs
+
+    return step
+
+
+def survey_pipeline_step(mesh, n_x: int, n_r: int, with_sv: bool = True, device="cuda"):
+    """One full survey-processing step on one device (``mesh=None``).
+
+    Counterpart of ``echopype_tpu.parallel.survey_pipeline_step``: float32
+    dB power -> Sv and its MVBS on K3 (``with_sv``) or K4.
+    """
+    return sharded_sv_mvbs_step(mesh, n_x, n_r, with_sv=with_sv, device=device)

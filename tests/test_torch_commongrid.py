@@ -1,0 +1,428 @@
+"""Port parity: commongrid on Sv datasets (MVBS, index-binned MVBS, NASC).
+
+``echopype_torch.commongrid`` (device="cpu": the same torch ops the card
+runs, on the host) against ``echopype_tpu.commongrid`` on the same Sv
+datasets (one ``xrlite.Dataset`` feeds both).  Tolerances: MVBS within
+1e-5 dB (the accuracy contract; float32 bin sums in another order),
+NASC rtol 1e-5, the float64 paths (ping-varying grids, index binning,
+positions, distance) within 1e-9; coords, NaN masks and attrs identical
+(processing timestamps aside).  The cases are those tests/test_commongrid.py
+pins, plus the branches of commongrid/api.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import echopype_torch as et
+import echopype_tpu as ep
+from echopype_torch.commongrid import utils as tu
+from echopype_torch.ops import binning as tb
+from echopype_tpu.commongrid import utils as ju
+from echopype_tpu.ops import binning as jb
+from echopype_tpu.xrlite import Dataset
+
+torch.set_num_threads(1)
+
+MVBS_ATOL_DB = 1e-5
+NASC_RTOL = 1e-5
+F8_TOL = dict(rtol=1e-9, atol=1e-9)
+_CLOCK_ATTRS = ("processing_time",)
+
+
+def make_sv_dataset(n_ch=2, n_ping=60, n_r=100, seed=0, with_latlon=True, dr=0.5):
+    """tests/test_commongrid.py::make_sv_dataset."""
+    rng = np.random.default_rng(seed)
+    ping_time = np.datetime64("2020-01-01T00:00:03", "ns") + (
+        np.arange(n_ping) * np.timedelta64(2_000_000_000, "ns"))
+    sv = rng.normal(-70, 10, (n_ch, n_ping, n_r)).astype("f4")
+    er = np.broadcast_to(np.arange(n_r) * dr, (n_ch, n_ping, n_r)).copy()
+    ds = Dataset(
+        {
+            "Sv": (("channel", "ping_time", "range_sample"), sv),
+            "echo_range": (("channel", "ping_time", "range_sample"), er),
+            "frequency_nominal": (("channel",), 1000.0 * (1 + np.arange(n_ch))),
+        },
+        coords={
+            "channel": np.array([f"ch{i}" for i in range(n_ch)], dtype=object),
+            "ping_time": ping_time,
+            "range_sample": np.arange(n_r),
+        },
+        attrs={"processing_level": "Level 2A"},
+    )
+    if with_latlon:
+        ds["latitude"] = (("ping_time",), 45.0 + np.arange(n_ping) * 1e-4)
+        ds["longitude"] = (("ping_time",), -125.0 + np.arange(n_ping) * 1e-4)
+    return ds
+
+
+def _mvbs_case(name):
+    """(dataset, compute_MVBS kwargs) for one branch of compute_MVBS."""
+    kw = {}
+    if name == "default":
+        ds = make_sv_dataset()
+    elif name == "closed_right":
+        ds, kw = make_sv_dataset(n_ch=1, n_ping=20, n_r=30), dict(range_bin="5m", closed="right")
+    elif name == "skipna_false":
+        ds, kw = make_sv_dataset(n_ch=1, n_ping=20, n_r=30), dict(range_bin="5m", skipna=False)
+        ds.data_vars["Sv"].values[0, 0, 5] = np.nan
+        ds.data_vars["Sv"].values[0, 12, :] = np.nan  # a whole NaN ping
+    elif name == "range_var_max":
+        ds, kw = make_sv_dataset(n_r=40), dict(range_bin="10m", range_var_max="30m")
+    elif name == "fill_value":  # range_var_max past the data leaves empty bins
+        ds, kw = make_sv_dataset(n_r=40), dict(range_bin="5m", range_var_max="40m",
+                                               fill_value=1e-9)
+    elif name == "fill_value_skipna_false":
+        ds = make_sv_dataset(n_r=40)
+        ds.data_vars["Sv"].values[:, 7, :] = np.nan
+        kw = dict(range_bin="5m", range_var_max="40m", fill_value=1e-9, skipna=False)
+    elif name == "depth":
+        ds = make_sv_dataset()
+        ds["depth"] = (("channel", "ping_time", "range_sample"),
+                       np.asarray(ds["echo_range"].values) + 3.2)
+        kw = dict(range_var="depth", range_bin="7m")
+    elif name == "range_row":  # echo_range carried as one row per channel
+        ds = make_sv_dataset(seed=3)
+        ds["echo_range"] = (("channel", "range_sample"),
+                            np.asarray(ds["echo_range"].values)[:, 0, :].copy())
+    elif name == "unsorted_pings":
+        ds = make_sv_dataset(seed=1)
+        order = np.random.default_rng(1).permutation(ds.sizes["ping_time"])
+        ds = Dataset(
+            {
+                "Sv": (("channel", "ping_time", "range_sample"),
+                       np.asarray(ds["Sv"].values)[:, order]),
+                "echo_range": (("channel", "ping_time", "range_sample"),
+                               np.asarray(ds["echo_range"].values)[:, order]),
+                "latitude": (("ping_time",), np.asarray(ds["latitude"].values)[order]),
+                "longitude": (("ping_time",), np.asarray(ds["longitude"].values)[order]),
+            },
+            coords={
+                "channel": ds.coords["channel"].values,
+                "ping_time": np.asarray(ds.coords["ping_time"].values)[order],
+                "range_sample": ds.coords["range_sample"].values,
+            },
+            attrs={"processing_level": "Level 2A"},
+        )
+    elif name == "upward_looking":
+        ds = make_sv_dataset(seed=2)
+        er = np.asarray(ds["echo_range"].values)
+        ds["echo_range"] = (("channel", "ping_time", "range_sample"), er[:, :, ::-1].copy())
+    elif name == "ping_varying_grid":  # the exact float64 host path
+        ds = make_sv_dataset(seed=4)
+        er = np.asarray(ds["echo_range"].values)
+        wobble = np.random.default_rng(4).uniform(0.98, 1.02, er.shape[:2])[:, :, None]
+        ds["echo_range"] = (("channel", "ping_time", "range_sample"), er * wobble)
+    elif name == "ragged_nan_range":  # echo_range NaN where a ping is short
+        ds = make_sv_dataset(seed=5)
+        ds.data_vars["Sv"].values[:, 3, 70:] = np.nan
+        ds.data_vars["echo_range"].values[:, 3, 70:] = np.nan
+    elif name == "no_latlon":
+        ds = make_sv_dataset(with_latlon=False)
+    elif name == "level_2b":
+        ds = make_sv_dataset()
+        ds.attrs["processing_level"] = "Level 2B"
+    elif name == "time_bin_30s":
+        ds, kw = make_sv_dataset(n_ping=90), dict(ping_time_bin="0.5min", range_bin="12.5m")
+    else:
+        raise KeyError(name)
+    return ds, kw
+
+
+MVBS_CASES = ["default", "closed_right", "skipna_false", "range_var_max", "fill_value",
+              "fill_value_skipna_false", "depth", "range_row", "unsorted_pings",
+              "upward_looking", "ping_varying_grid", "ragged_nan_range", "no_latlon",
+              "level_2b", "time_bin_30s"]
+
+
+def _attrs(a):
+    return {k: v for k, v in dict(a).items() if k not in _CLOCK_ATTRS}
+
+
+def assert_same_dataset(got, want, atol, rtol=0.0):
+    assert set(got.data_vars) == set(want.data_vars)
+    assert _attrs(got.attrs) == _attrs(want.attrs)
+    for name in want.coords:
+        np.testing.assert_array_equal(np.asarray(got.coords[name].values),
+                                      np.asarray(want.coords[name].values))
+        assert dict(got.coords[name].attrs) == dict(want.coords[name].attrs)
+    for name in want.data_vars:
+        g, w = np.asarray(got[name].values), np.asarray(want[name].values)
+        assert got[name].dims == want[name].dims and g.shape == w.shape, name
+        assert dict(got[name].attrs) == dict(want[name].attrs), name
+        if w.dtype.kind == "f":
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w), err_msg=name)
+            np.testing.assert_allclose(g, w, rtol=rtol, atol=atol, err_msg=name)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+class TestComputeMVBS:
+    @pytest.mark.parametrize("case", MVBS_CASES)
+    def test_matches_jax(self, case):
+        ds, kw = _mvbs_case(case)
+        got = et.compute_MVBS(ds, device="cpu", **kw)
+        want = ep.commongrid.compute_MVBS(ds, **kw)
+        assert_same_dataset(got, want, atol=MVBS_ATOL_DB)
+        assert np.isfinite(np.asarray(got["Sv"].values)).any()
+
+    def test_quiet_bin_after_loud_pings(self):
+        """tests/test_commongrid.py::TestQuietBinPrecision: a quiet bin after
+        loud pings against a float64 oracle (atol 2e-5 dB)."""
+        rng = np.random.default_rng(9)
+        P, R = 120, 64
+        pt = np.datetime64("2021-01-01", "ns") + np.arange(P).astype(
+            "timedelta64[s]").astype("timedelta64[ns]")
+        sv = np.full((1, P, R), -20.0, dtype="f4")
+        sv[:, 80:] = -100.0
+        sv += rng.normal(0, 1, sv.shape).astype("f4")
+        er = np.broadcast_to(np.arange(R, dtype="f4") * 0.5, (1, P, R)).copy()
+        ds = Dataset(coords={"channel": np.asarray(["ch"], dtype=object), "ping_time": pt,
+                             "range_sample": np.arange(R)})
+        ds["Sv"] = (("channel", "ping_time", "range_sample"), sv)
+        ds["echo_range"] = (("channel", "ping_time", "range_sample"), er)
+        got = np.asarray(et.compute_MVBS(ds, range_bin="8m", ping_time_bin="20s",
+                                         device="cpu")["Sv"].values)
+        edges_t, edges_r = np.arange(0, P + 20, 20), np.arange(0, er.max() + 8.0, 8.0)
+        want = np.full((1, len(edges_t) - 1, len(edges_r) - 1), np.nan)
+        lin = 10.0 ** (sv.astype("f8") / 10.0)
+        for i in range(len(edges_t) - 1):
+            for j in range(len(edges_r) - 1):
+                rsel = (er[0, 0] >= edges_r[j]) & (er[0, 0] < edges_r[j + 1])
+                block = lin[0, edges_t[i]:min(edges_t[i + 1], P)][:, rsel]
+                if block.size:
+                    want[0, i, j] = 10 * np.log10(block.mean())
+        n_t, n_r = min(got.shape[1], want.shape[1]), min(got.shape[2], want.shape[2])
+        np.testing.assert_allclose(got[:, :n_t, :n_r], want[:, :n_t, :n_r], rtol=0, atol=2e-5,
+                                   equal_nan=True)
+
+    def test_attrs_and_levels(self):
+        mvbs = et.compute_MVBS(make_sv_dataset(), device="cpu")
+        assert mvbs.attrs["processing_function"] == "commongrid.compute_MVBS"
+        assert mvbs.attrs["processing_level"] == "Level 3A"
+        assert "input_processing_level" not in mvbs.attrs
+        assert "processing_level" not in et.compute_MVBS(
+            make_sv_dataset(with_latlon=False), device="cpu").attrs
+
+    @pytest.mark.parametrize("kw, exc", [
+        (dict(range_bin="10 parsecs"), ValueError),
+        (dict(ping_time_bin=20), TypeError),
+        (dict(closed="both"), ValueError),
+        (dict(range_var="depth"), ValueError),
+        (dict(range_var="range"), ValueError),
+        (dict(ping_time_bin="1W"), ValueError),
+    ])
+    def test_bad_inputs(self, kw, exc):
+        ds = make_sv_dataset()
+        with pytest.raises(exc):
+            et.compute_MVBS(ds, device="cpu", **kw)
+
+    def test_cuda_request_without_cuda_raises(self):
+        if torch.cuda.is_available():
+            pytest.skip("a CUDA device is present; this checks the no-fallback rule")
+        with pytest.raises(RuntimeError, match="cuda"):
+            et.compute_MVBS(make_sv_dataset())
+
+
+class TestIndexBinning:
+    @pytest.mark.parametrize("shape, nums", [((1, 25, 35), (10, 10)), ((2, 60, 100), (7, 13)),
+                                             ((2, 30, 40), (100, 100))])
+    def test_matches_jax(self, shape, nums):
+        ds = make_sv_dataset(n_ch=shape[0], n_ping=shape[1], n_r=shape[2], seed=6)
+        ds.data_vars["Sv"].values[0, 2, 10:] = np.nan
+        ds.data_vars["echo_range"].values[0, 2, 10:] = np.nan
+        got = et.compute_MVBS_index_binning(ds, range_sample_num=nums[0], ping_num=nums[1],
+                                            device="cpu")
+        want = ep.commongrid.compute_MVBS_index_binning(ds, range_sample_num=nums[0],
+                                                        ping_num=nums[1])
+        assert_same_dataset(got, want, **F8_TOL)
+
+
+def _nasc_dataset(seed=0, n_ping=40, n_r=50, const_sv=None, nan_positions=False):
+    ds = make_sv_dataset(n_ch=2, n_ping=n_ping, n_r=n_r, seed=seed)
+    if const_sv is not None:
+        ds.data_vars["Sv"].values[:] = const_sv
+    ds["depth"] = (("channel", "ping_time", "range_sample"),
+                   np.asarray(ds["echo_range"].values) + 1.5)
+    lat = 45.0 + np.arange(n_ping) * 3e-3
+    if nan_positions:
+        lat[[0, 5, 6]] = np.nan
+    ds["latitude"] = (("ping_time",), lat)
+    return ds
+
+
+class TestComputeNASC:
+    @pytest.mark.parametrize("kw, data", [
+        ({}, {}),
+        (dict(range_bin="5m", dist_bin="0.1nmi"), dict(seed=1)),
+        (dict(range_bin="5m", dist_bin="0.1nmi", closed="right"), dict(seed=2)),
+        (dict(range_bin="5m", dist_bin="0.05nmi", skipna=False), dict(seed=3)),
+        (dict(dist_bin="0.2nmi"), dict(nan_positions=True)),
+        (dict(range_bin="10m", dist_bin="0.5nmi"), dict(const_sv=-60.0)),
+    ], ids=["default", "fine", "closed_right", "skipna_false", "nan_positions", "constant_sv"])
+    def test_matches_jax(self, kw, data):
+        ds = _nasc_dataset(**data)
+        if kw.get("skipna") is False:
+            ds.data_vars["Sv"].values[1, 4, 7] = np.nan
+        got = et.compute_NASC(ds, device="cpu", **kw)
+        want = ep.commongrid.compute_NASC(ds, **kw)
+        assert_same_dataset(got, want, atol=0.0, rtol=NASC_RTOL)
+        assert np.isfinite(np.asarray(got["NASC"].values)).any()
+
+    def test_ping_varying_depth_grid(self):
+        ds = _nasc_dataset(seed=4)
+        dep = np.asarray(ds["depth"].values)
+        ds["depth"] = (("channel", "ping_time", "range_sample"),
+                       dep * np.random.default_rng(4).uniform(0.98, 1.02, dep.shape[:2])[:, :, None])
+        got = et.compute_NASC(ds, range_bin="5m", dist_bin="0.1nmi", device="cpu")
+        want = ep.commongrid.compute_NASC(ds, range_bin="5m", dist_bin="0.1nmi")
+        assert_same_dataset(got, want, **F8_TOL)
+
+    def test_constant_sv_analytic(self):
+        """tests/test_commongrid.py::TestNASC: NASC = sv_lin * H * 4 pi 1852^2."""
+        n_ping, n_r = 40, 50
+        ds = make_sv_dataset(n_ch=1, n_ping=n_ping, n_r=n_r, dr=0.5)
+        ds.data_vars["Sv"].values[:] = -60.0
+        ds["depth"] = (("channel", "ping_time", "range_sample"), ds["echo_range"].values)
+        v = et.compute_NASC(ds, range_bin="10m", dist_bin="0.5nmi", device="cpu")["NASC"].values
+        expected = 10 ** (-60.0 / 10) * 10.0 * 4 * np.pi * 1852**2
+        np.testing.assert_allclose(v[0, 0, 1:(n_r // 20) - 1], expected, rtol=0.02)
+
+    @pytest.mark.parametrize("kw, exc", [
+        (dict(dist_bin=0.5), TypeError), (dict(dist_bin="0.5km"), ValueError),
+        (dict(range_bin="5 fathoms"), ValueError),
+    ])
+    def test_bad_inputs(self, kw, exc):
+        with pytest.raises(exc):
+            et.compute_NASC(_nasc_dataset(), device="cpu", **kw)
+
+    def test_requires_depth(self):
+        with pytest.raises(ValueError, match="depth"):
+            et.compute_NASC(make_sv_dataset(), device="cpu")
+
+
+class TestUtils:
+    @pytest.mark.parametrize("ping_time_bin", [
+        "20s", "0.5min", "1min", "90min", "2h", "0.25h", "24h", "48h", "100ms", "1.5s",
+        "1500us", "500us", "2000ns", "3ns", "60s", "3600s", "86400s", "1000000us", " 5 s"])
+    def test_parse_time_bin_to_value_unit(self, ping_time_bin):
+        assert tu.parse_time_bin_to_value_unit(ping_time_bin) == \
+            ju.parse_time_bin_to_value_unit(ping_time_bin)
+
+    @pytest.mark.parametrize("x_bin, label", [("10m", "range_bin"), (" 2.5 M", "range_bin"),
+                                              ("0.5nmi", "dist_bin"), ("2 NMI", "dist_bin")])
+    def test_parse_x_bin(self, x_bin, label):
+        assert tu._parse_x_bin(x_bin, label) == ju._parse_x_bin(x_bin, label)
+
+    @pytest.mark.parametrize("x_bin, label, exc", [("0.5nmi", "range_bin", ValueError),
+                                                   ("10m", "dist_bin", ValueError),
+                                                   (10, "range_bin", TypeError),
+                                                   ("10m", "time_bin", KeyError)])
+    def test_parse_x_bin_errors(self, x_bin, label, exc):
+        for fn in (tu._parse_x_bin, ju._parse_x_bin):
+            with pytest.raises(exc):
+                fn(x_bin, label)
+
+    def test_binned_mean_to_db_fill_semantics(self):
+        rng = np.random.default_rng(8)
+        sums = rng.uniform(0, 1e-6, (2, 6, 5))
+        counts = rng.integers(0, 3, sums.shape).astype("f8")
+        nans = rng.integers(0, 2, sums.shape).astype("f8")
+        for fill in (np.nan, None, 1e-9, 0.0, -1.0):
+            np.testing.assert_array_equal(tu._binned_mean_to_db(sums, counts, nans, fill),
+                                          ju._binned_mean_to_db(sums, counts, nans, fill))
+
+    def test_distance_and_positions(self):
+        ds = _nasc_dataset(nan_positions=True)
+        d_t, d_j = tu.get_distance_from_latlon(ds), ju.get_distance_from_latlon(ds)
+        np.testing.assert_allclose(d_t, d_j, **F8_TOL)
+        assert np.all(np.diff(d_t) >= 0)
+        x_idx = np.arange(ds.sizes["ping_time"]) // 7 - 1
+        got = tu.get_reduced_positions(ds, Dataset(coords={"x": np.arange(5)}), "x", x_idx, 5)
+        want = ju.get_reduced_positions(ds, Dataset(coords={"x": np.arange(5)}), "x", x_idx, 5)
+        for var in ("latitude", "longitude"):
+            np.testing.assert_allclose(got[var].values, want[var].values, **F8_TOL)
+        nan_ds = make_sv_dataset()
+        nan_ds["latitude"] = (("ping_time",), np.full(nan_ds.sizes["ping_time"], np.nan))
+        with pytest.raises(ValueError, match="NaN"):
+            tu.get_distance_from_latlon(nan_ds)
+
+    def test_assign_actual_range(self):
+        mvbs = et.compute_MVBS(make_sv_dataset(), device="cpu")
+        assert tu.assign_actual_range(mvbs).attrs["actual_range"] == \
+            ju.assign_actual_range(mvbs).attrs["actual_range"]
+
+
+class TestBinningOps:
+    """The device window partials and host helpers of ops/binning.py."""
+
+    def _chunk(self, seed=0, C=2, P=40, R=60, W=5):
+        rng = np.random.default_rng(seed)
+        sv = rng.normal(-70, 10, (C, P, R)).astype("f4")
+        sv[rng.random(sv.shape) < 0.05] = np.nan
+        er = np.broadcast_to(np.arange(R, dtype="f4") * 0.5, (C, P, R)).copy()
+        er[:, 3, 50:] = np.nan  # a ragged suffix
+        x_rel = np.sort(rng.integers(-1, W + 1, P)).astype("i4")
+        edges = np.arange(0, 32.0, 4.0, dtype="f4")
+        return sv, er, edges, x_rel, W
+
+    @pytest.mark.parametrize("uniform_er", [True, False])
+    @pytest.mark.parametrize("skipna", [True, False])
+    @pytest.mark.parametrize("closed", ["left", "right"])
+    def test_binned_window_partials(self, uniform_er, skipna, closed):
+        sv, er, edges, x_rel, W = self._chunk()
+        if not uniform_er:
+            er = er * np.float32(1.01)
+        want = jb.binned_window_partials(sv, er, edges, x_rel, W, skipna=skipna, closed=closed,
+                                         uniform_er=uniform_er)
+        got = tb.binned_window_partials(*[torch.from_numpy(a) for a in (sv, er, edges, x_rel)],
+                                        W, skipna=skipna, closed=closed, uniform_er=uniform_er)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-12)
+
+    @pytest.mark.parametrize("uniform_er", [True, False])
+    def test_binned_window_sum_raw(self, uniform_er):
+        sv, er, edges, x_rel, W = self._chunk(seed=1)
+        vals = np.abs(sv)
+        want = jb.binned_window_sum_raw(vals, er, edges, x_rel, W, uniform_er=uniform_er)
+        got = tb.binned_window_sum_raw(*[torch.from_numpy(a) for a in (vals, er, edges, x_rel)],
+                                       W, uniform_er=uniform_er)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+
+    @pytest.mark.parametrize("closed", ["left", "right"])
+    def test_host_helpers_identical(self, closed):
+        rng = np.random.default_rng(3)
+        er = np.sort(rng.uniform(0, 50, (2, 9, 30)), axis=2)
+        er[0, 1, 20:] = np.nan
+        edges = np.arange(0, 55, 5.0)
+        for a, b in zip(tb.exact_bin_encode_np(er, edges, closed),
+                        jb.exact_bin_encode_np(er, edges, closed)):
+            np.testing.assert_array_equal(a, b)
+        assert tb.er_is_uniform(er) == jb.er_is_uniform(er) is False
+        assert tb.er_is_uniform(er[:, :1].repeat(9, 1)) is True
+        vals = rng.uniform(0, 50, 40)
+        np.testing.assert_array_equal(tb.bin_index_np(vals, edges, closed),
+                                      jb.bin_index_np(vals, edges, closed))
+        np.testing.assert_array_equal(tb.x_bounds_np(np.sort(vals), edges, closed),
+                                      jb.x_bounds_np(np.sort(vals), edges, closed))
+        rb_t = tb.row_bin_bounds(torch.from_numpy(er.astype("f4")),
+                                 torch.from_numpy(edges.astype("f4")), closed)
+        rb_j = jb.row_bin_bounds(er.astype("f4"), edges.astype("f4"), closed)
+        np.testing.assert_array_equal(rb_t.numpy(), np.asarray(rb_j))
+
+    @pytest.mark.parametrize("uniform", [True, False])
+    def test_windowed_partials_np(self, uniform):
+        sv, er, edges, _, _ = self._chunk(seed=2, P=70)
+        er = er.astype("f8")
+        if not uniform:
+            er = er * np.random.default_rng(2).uniform(0.99, 1.01, er.shape[:2])[:, :, None]
+        x_bounds = np.array([0, 9, 9, 30, 55, 66])
+        got = tb.windowed_partials_np(sv, er, edges, x_bounds, skipna=False, chunk_pings=16,
+                                      device="cpu")
+        want = jb.windowed_partials_np(sv, er, edges, x_bounds, skipna=False, chunk_pings=16)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-12)
+        got = tb.windowed_sum_raw_np(np.abs(sv), er, edges, x_bounds, chunk_pings=16,
+                                     device="cpu")
+        want = jb.windowed_sum_raw_np(np.abs(sv), er, edges, x_bounds, chunk_pings=16)
+        np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -2,7 +2,9 @@
 
 A subprocess refuses ``jax``, ``jaxlib`` and ``pandas`` from a
 ``sys.meta_path`` finder, imports echopype_torch and runs the raw->MVBS
-survey on the CPU; neither module may be loaded afterwards.  The package's
+survey, ``compute_Sv`` -> ``compute_MVBS`` / ``compute_MVBS_index_binning``
+and the fused survey step on the CPU; none of the three may be loaded
+afterwards.  The package's
 sources must not import them either.
 """
 
@@ -47,6 +49,17 @@ _SCRIPT = textwrap.dedent(
                                        chunk_pings=16, device="cpu")
     sv = et.calibrate.compute_Sv(et.open_raw(path, sonar_model="EK60"), device="cpu")
     assert np.isfinite(mvbs["Sv"].values).any() and sv["Sv"].values.shape == (2, 30, 200)
+    grid = et.compute_MVBS(sv, range_bin="5m", ping_time_bin="10s", device="cpu")
+    assert "ping_time: mean (interval: 10 second" in grid["Sv"].attrs["cell_methods"]
+    assert np.isfinite(grid["Sv"].values).any()
+    coarse = et.compute_MVBS_index_binning(sv, range_sample_num=20, ping_num=5, device="cpu")
+    assert coarse["Sv"].values.shape == (2, 6, 10)
+    rng = np.random.default_rng(0)
+    power = rng.normal(-80, 10, (2, 16, 64)).astype("f4")
+    cp = np.full((2, 16), 0.19, "f4")
+    sv_t, mvbs_t = et.survey_pipeline_step(None, 4, 3, device="cpu")(
+        power, cp, 2 * cp, cp * 0.05, cp - 30, np.arange(16) // 4, np.arange(0, 12.0, 3.0))
+    assert sv_t.shape == (2, 16, 64) and torch.isfinite(mvbs_t).all()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("LOADED", loaded)
     """

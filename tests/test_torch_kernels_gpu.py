@@ -1,5 +1,5 @@
-"""The CUDA window kernels (K1 / K2) against their plain PyTorch twins, on
-the card.
+"""The CUDA kernels (K1 / K2 window partials, K3 / K4 fused Sv + bin
+partials) against their plain PyTorch twins, on the card.
 
 Needs a CUDA device and nvcc; marked ``gpu`` and skipped elsewhere.  This
 file imports neither jax nor the JAX package, so it also runs where JAX is
@@ -10,14 +10,18 @@ not installed:
 (``--noconftest`` skips tests/conftest.py, which sets up JAX.)  Small
 shapes with the edge cases the survey produces: empty window bins, pings
 parked past the window, short and zero valid lengths, a first valid sample
-past bin edges.  Counts exact, sums within rtol 1e-5 (float32 sums in
-another order), reruns bit-identical, one launch counted per call.
+past bin edges; for K3 / K4 ragged NaN pings, interior NaNs, whole NaN
+pings, a TVG shift off the sample grid, rows longer than one shared-memory
+segment, and pings outside the ping bins.  Counts exact, sums within rtol
+1e-5 (float32 sums in another order), Sv within rtol / atol 1e-5 with
+identical NaN masks, reruns bit-identical, one launch counted per call.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from echopype_torch.ops import sv_bin_partials as sbp
 from echopype_torch.ops import window_partials as wp
 from echopype_torch.parallel.pipeline import kernel_inputs_from_numpy
 
@@ -105,3 +109,80 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="is on cpu"):
         wp.window_partials_uniform(**{**ops, "xb": ops["xb"].cpu()})
     assert wp.LAUNCHES["window_partials_uniform"] == 0
+
+
+def _fused_chunk(seed, C=3, P=157, R=700, n_x=9):
+    rng = np.random.default_rng(seed)
+    power = rng.normal(-90.0, 12.0, (C, P, R)).astype("f4")
+    for p in range(0, P, 13):
+        power[:, p, int(rng.integers(0, R)):] = np.nan
+    power[rng.random(power.shape) < 0.01] = np.nan
+    power[1, 5, :] = np.nan
+    dr = np.tile(rng.uniform(0.15, 0.25, (C, 1)), (1, P)).astype("f4")
+    shift = (dr * rng.uniform(0.5, 12.0, (C, 1))).astype("f4")
+    ab = rng.uniform(0.001, 0.05, (C, P)).astype("f4")
+    off = rng.normal(-30, 2, (C, P)).astype("f4")
+    x_idx = np.sort(rng.integers(-1, n_x + 1, P)).astype("i4")  # some outside the bins
+    edges = np.arange(0, 0.25 * R + 7.0, 7.0).astype("f4")
+    return power, dr, shift, ab, off, x_idx, edges, n_x, len(edges) - 1
+
+
+def _bits(t):
+    return t.view(torch.int32)
+
+
+@pytest.mark.parametrize("with_sv", [True, False], ids=["k3", "k4"])
+@pytest.mark.parametrize("R", [700, 9000], ids=["one_segment", "three_segments"])
+def test_fused_kernels_match_plain(cuda, with_sv, R):
+    ops, _ = sbp.fused_operands(*_fused_chunk(R, R=R), device=cuda)
+    kernel = sbp.sv_bin_partials if with_sv else sbp.mvbs_partials
+    plain = sbp.sv_bin_partials_plain if with_sv else sbp.mvbs_partials_plain
+    name = "sv_bin_partials" if with_sv else "mvbs_partials"
+    sbp.reset_launches()
+    got, again = kernel(**ops), kernel(**ops)
+    torch.cuda.synchronize()
+    assert sbp.LAUNCHES[name] == 2
+    want = plain(**ops)
+    for g, a in zip(got, again):
+        assert torch.equal(_bits(g), _bits(a)), "rerun not bit-identical"
+    if with_sv:
+        sv_g, sv_w = got[0].cpu().numpy(), want[0].cpu().numpy()
+        np.testing.assert_array_equal(np.isnan(sv_g), np.isnan(sv_w))
+        np.testing.assert_allclose(sv_g, sv_w, rtol=1e-5, atol=1e-5)
+    s_g, c_g = (t.cpu().numpy() for t in got[-2:])
+    s_w, c_w = (t.cpu().numpy() for t in want[-2:])
+    np.testing.assert_array_equal(c_g, c_w)
+    np.testing.assert_allclose(s_g, s_w, rtol=1e-5, atol=1e-30)
+    assert (c_g > 0).any() and (c_g == 0).any()
+
+
+def test_fused_cores_card_equals_cpu(cuda):
+    args = _fused_chunk(7)
+    sbp.reset_launches()
+    sv_g, s_g, c_g = sbp.sv_mvbs_core_fused(*args, device=cuda)
+    s4_g, c4_g = sbp.mvbs_core_fused(*args, device=cuda)
+    assert sbp.LAUNCHES == {"sv_bin_partials": 1, "mvbs_partials": 1}
+    sv_c, s_c, c_c = sbp.sv_mvbs_core_fused(*args, device="cpu")
+    s4_c, c4_c = sbp.mvbs_core_fused(*args, device="cpu")
+    np.testing.assert_allclose(sv_g.cpu().numpy(), sv_c.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(c_g.cpu().numpy(), c_c.numpy())
+    np.testing.assert_array_equal(c4_g.cpu().numpy(), c4_c.numpy())
+    np.testing.assert_allclose(s_g.cpu().numpy(), s_c.numpy(), rtol=1e-5, atol=1e-30)
+    np.testing.assert_allclose(s4_g.cpu().numpy(), s4_c.numpy(), rtol=1e-5, atol=1e-30)
+
+
+def test_fused_wrapper_rejects_bad_operands(cuda):
+    ops, _ = sbp.fused_operands(*_fused_chunk(3), device=cuda)
+    sbp.reset_launches()
+    with pytest.raises(TypeError, match="float32"):
+        sbp.sv_bin_partials(**{**ops, "power": ops["power"].double()})
+    with pytest.raises(TypeError, match="int32"):
+        sbp.mvbs_partials(**{**ops, "bounds": ops["bounds"].long()})
+    with pytest.raises(ValueError, match="contiguous"):
+        sbp.sv_bin_partials(**{**ops, "power": ops["power"].transpose(1, 2)
+                               .contiguous().transpose(1, 2)})
+    with pytest.raises(ValueError, match="is on cpu"):
+        sbp.mvbs_partials(**{**ops, "dr": ops["dr"].cpu()})
+    with pytest.raises(ValueError, match="shape"):
+        sbp.sv_bin_partials(**{**ops, "offset": ops["offset"][:, :-1].contiguous()})
+    assert sbp.LAUNCHES == {"sv_bin_partials": 0, "mvbs_partials": 0}
