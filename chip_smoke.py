@@ -8,16 +8,22 @@ NVIDIA card (H100), nvcc and PyTorch built for CUDA:
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
 
-1. start: the card's name and power limit (nvidia-smi), torch / CUDA versions;
-   fails at once where ``torch.cuda.is_available()`` is false;
+1. start: the card's name and power limit (nvidia-smi), torch / CUDA
+   versions, and whether the port's native ingest scanner (g++, built into
+   ``echopype_torch/native/``) loaded; fails at once where
+   ``torch.cuda.is_available()`` is false;
 2. build the CUDA kernels from ``echopype_torch/csrc/`` (one nvcc per
    source, all started together), timed;
 3. K1 (``window_partials_uniform``) at the survey's chunk shape (5 channels x
    5,000 pings x 4,000 int16 samples, 20 m range bins at dr ~0.19 m, 251
    twenty-second ping bins) against its plain PyTorch twin on the card:
    counts exact, sums within rtol 1e-5, two kernel runs bit-identical, both
-   timed with CUDA events (median of 20);
-4. K2 (``window_partials``) the same way, with dr varying by ping;
+   timed with CUDA events (median of 20), with the kernel's bound (bytes,
+   or the instructions the function needs, at the H100's published peaks)
+   and its share; then the same
+   at two coarse windows (W = 2, most of the chunk in one window, so the
+   windows' slab partials are combined);
+4. K2 (``window_partials``) the same two ways, with dr varying by ping;
 5. K3 (``sv_bin_partials``) at the full width, 5 x 5,000 x 4,000 float32
    dB power with a NaN suffix on every 97th ping and scattered interior
    NaNs, dr 0.18944 m, 20 m range bins, against its plain twin on the card:
@@ -39,8 +45,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    calibration inputs and compute_MVBS's grid: K3's Sv equals compute_Sv's
    (rtol/atol 1e-5, same NaN mask), its MVBS equals compute_MVBS's within
    1e-4 dB, K4's MVBS equals K3's within 1e-3 dB, one launch each;
-9. print the kernel table as one JSON line, then the result line
-   ``{"ok": true, "device": {...}}`` last.
+9. print the kernel table as one JSON line (launches on the main path,
+   error, kernel / plain twin ms, bound ms and what sets it; no single
+   PyTorch call computes any of the four functions, so ``library_ms`` is
+   null), then the result line ``{"ok": true, "device": {...}}`` last.
 
 Imports nothing of JAX.  The synthetic files are written under ``build/``
 in the checkout and removed at the end.
@@ -71,6 +79,29 @@ SV_RTOL = SV_ATOL = 1e-5  # tests/test_parallel.py:63; one f32 ulp at -90 dB is 
 K4_VS_K3_DB, NASC_RTOL = 1e-3, 1e-5
 E2E_PINGS = (10_000, 10_000, 5_000)  # files A, B (uniform dr) and C (dr by ping)
 KERNEL_SOURCES = ("window_partials", "sv_bin_partials")
+COARSE_PING_BIN_S = 4000  # two ping windows over a chunk's 5,000 pings
+# H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
+# float32 operations/s outside the tensor cores.  The latter counts an FMA
+# as two: the card issues half as many instructions, 128 lanes a clock per
+# SM, and every instruction, whatever its unit, takes one of those slots.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INSTR_PER_S = F32_OPS_PER_S / 2
+# instructions of the library expf / log10f on sm_90a inside a loop (SASS,
+# counted by tools/window_probe.py: 10 and 28, less the constant moves a
+# loop hoists)
+EXPF_INSTR, LOG10F_INSTR = 8, 25
+# instructions a sample needs (what the function computes, not what the
+# kernel issues): the int16 -> float conversion (K1, K2) or the sample's
+# range k dr - shift (K3, K4: 3), the sonar equation's rounded multiplies
+# and adds, the library calls, the adds into the bin sum (and count, K3/K4)
+INSTR_PER_SAMPLE = {
+    "K1": 1 + 6 + EXPF_INSTR + 1,
+    "K2": 1 + 10 + LOG10F_INSTR + EXPF_INSTR + 1,
+    "K3": 3 + 5 + LOG10F_INSTR + 1 + EXPF_INSTR + 2,
+    "K4": 3 + 3 + 1 + EXPF_INSTR + 2 + 2,
+}
+K3_SV_INSTR = 3 + 5 + LOG10F_INSTR  # K3 writes Sv for every sample, binned or not
 
 
 def say(phase, **fields):
@@ -91,7 +122,18 @@ def cuda_ms(fn, reps=20, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def chunk_inputs(seed, vary_dr):
+def bound_ms(nbytes, instr):
+    """Least time for ``nbytes`` of memory traffic and ``instr`` instructions
+    at the card's peaks, in ms, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, instr / INSTR_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def chunk_inputs(seed, vary_dr, ping_bin_s=PING_BIN_S):
     """One survey chunk at the main path's shape, made from ``seed``."""
     rng = np.random.default_rng(seed)
     power = rng.integers(-12000, -2000, (C, P, R), dtype=np.int16)
@@ -104,7 +146,7 @@ def chunk_inputs(seed, vary_dr):
     vl = np.full((C, P), R, "i4")
     vl[:, ::97] = rng.integers(0, R, vl[:, ::97].shape)  # some short pings
     t = 7.0 + np.arange(P)  # 1 Hz pings, not aligned to the bin edges
-    ids = (t // PING_BIN_S).astype("i4")
+    ids = (t // ping_bin_s).astype("i4")
     x_rel = ids - ids[0]
     W = int(x_rel[-1]) + 1
     r_bound = R * 256e-6 * 1700.0 / 2.0  # the streamer's scanned range bound
@@ -112,12 +154,12 @@ def chunk_inputs(seed, vary_dr):
     return power, dr, shift, ab, off, vl, x_rel, edges, W
 
 
-def kernel_phase(name, uniform, seed):
+def kernel_phase(name, uniform, seed, ping_bin_s=PING_BIN_S):
     from echopype_torch.ops import window_partials as wp
     from echopype_torch.parallel.pipeline import (
         closed_bounds_k0_np, closed_window_counts_np, kernel_inputs_from_numpy)
 
-    args = chunk_inputs(seed, vary_dr=not uniform)
+    args = chunk_inputs(seed, vary_dr=not uniform, ping_bin_s=ping_bin_s)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     ops = kernel_inputs_from_numpy(*args, uniform=uniform, device=dev)
@@ -127,7 +169,8 @@ def kernel_phase(name, uniform, seed):
         kernel, plain = wp.window_partials_uniform, wp.window_partials_uniform_plain
     else:
         kernel, plain = wp.window_partials, wp.window_partials_plain
-    got, again, want = kernel(**ops), kernel(**ops), plain(**ops)
+    plain_ops = {k: v for k, v in ops.items() if k != "plan"}  # plan: the kernel's work split
+    got, again, want = kernel(**ops), kernel(**ops), plain(**plain_ops)
     torch.cuda.synchronize()
     bit_identical = all(torch.equal(a, b) for a, b in zip(got, again))
     s_k, c_k = (t.double().cpu().numpy() for t in got)
@@ -142,18 +185,28 @@ def kernel_phase(name, uniform, seed):
     max_rel = float(np.max(rel))
     if uniform:  # time the call the survey makes: sums only
         ms = cuda_ms(lambda: kernel(**ops, with_counts=False))
-        plain_ms = cuda_ms(lambda: plain(**ops, with_counts=False))
+        plain_ms = cuda_ms(lambda: plain(**plain_ops, with_counts=False))
+        out = got[0]
     else:
         ms = cuda_ms(lambda: kernel(**ops))
-        plain_ms = cuda_ms(lambda: plain(**ops))
-    power_mb = ops["power"].numel() * 2 / 1e6
-    say(name, shape=list(ops["power"].shape), W=args[-1], n_r=ops["bounds"].shape[1] - 1,
-        counts_exact=counts_exact, bit_identical=bit_identical,
+        plain_ms = cuda_ms(lambda: plain(**plain_ops))
+        out = got
+    # each binned valid sample read once (2 bytes), the small operands read
+    # once, the outputs written once
+    n_binned = float(c_k.sum())
+    small = [t for key, t in plain_ops.items() if key != "power"]
+    bound = bound_ms(2 * n_binned + nbytes(*small) + nbytes(*(out if isinstance(out, tuple) else [out])),
+                     INSTR_PER_SAMPLE[name] * n_binned)
+    n_slabs = ops["plan"].shape[0] - args[-1] - 1
+    say(name, shape=list(ops["power"].shape), W=args[-1], slabs=n_slabs,
+        n_r=ops["bounds"].shape[1] - 1, counts_exact=counts_exact, bit_identical=bit_identical,
         max_abs_err=max_abs, max_rel_err=max_rel, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-        power_GBps=round(power_mb / ms, 1), h2d_s=round(h2d_s, 3))
+        bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"],
+        share_of_bound=round(bound["bound_ms"] / ms, 3),
+        power_GBps=round(ops["power"].numel() * 2 / 1e6 / ms, 1), h2d_s=round(h2d_s, 3))
     if not (counts_exact and bit_identical and max_rel <= SUM_RTOL):
-        raise AssertionError(f"{name}: kernel disagrees with its plain twin")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin (W={args[-1]})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def fused_inputs(seed):
@@ -205,14 +258,24 @@ def fused_phase(name, with_sv, seed):
     ms = cuda_ms(lambda: kernel(**ops))
     plain_ms = cuda_ms(lambda: plain(**ops))
     power_mb = ops["power"].numel() * 4 / 1e6
+    # every float32 sample read once (and with Sv written once), the small
+    # operands read once, the partials written once
+    n_binned = float(c_k.sum())
+    small = [t for key, t in ops.items() if key != "power"]
+    out_bytes = 4 * 2 * c_k.size + (ops["power"].numel() * 4 if with_sv else 0)
+    instr = INSTR_PER_SAMPLE[name] * n_binned
+    if with_sv:
+        instr += K3_SV_INSTR * (ops["power"].numel() - n_binned)
+    bound = bound_ms(ops["power"].numel() * 4 + nbytes(*small) + out_bytes, instr)
     say(name, shape=list(ops["power"].shape), n_r=ops["bounds"].shape[1] - 1,
         counts_exact=counts_exact, bit_identical=bit_identical, **fields,
         max_abs_err=max_abs, max_rel_err=max_rel, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
-        power_GBps=round(power_mb / ms, 1),
+        bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"],
+        share_of_bound=round(bound["bound_ms"] / ms, 3), power_GBps=round(power_mb / ms, 1),
         moved_GBps=round(power_mb * (2 if with_sv else 1) / ms, 1))
     if not (sv_ok and counts_exact and bit_identical and max_rel <= SUM_RTOL):
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 
 def sv_grid_step_inputs(ed, ds_Sv, range_bin_m=RANGE_BIN_M, ping_time_bin=f"{PING_BIN_S}s"):
@@ -347,12 +410,16 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
-    say("start", card=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
-        python=sys.version.split()[0], device_count=torch.cuda.device_count())
-
     sys.path.insert(0, str(ROOT))
     import echopype_torch as et
+    from echopype_torch import native
     from echopype_torch.ops import window_partials as wp
+
+    scanner = native.load_native()
+    say("start", card=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0], device_count=torch.cuda.device_count(),
+        native_scanner=scanner is not None,
+        native_lib=repr(str(Path(scanner._name).relative_to(ROOT)) if scanner else None))
     from echopype_torch.ops._build import build
     from echopype_torch.utils.profiling import StageTimer
 
@@ -365,7 +432,9 @@ def main():
         libraries=",".join(lib.name for lib, _ in built), ptxas=json.dumps(ptxas))
 
     k1 = kernel_phase("K1", uniform=True, seed=1)
+    kernel_phase("K1", uniform=True, seed=5, ping_bin_s=COARSE_PING_BIN_S)
     k2 = kernel_phase("K2", uniform=False, seed=2)
+    kernel_phase("K2", uniform=False, seed=6, ping_bin_s=COARSE_PING_BIN_S)
     k3 = fused_phase("K3", with_sv=True, seed=3)
     k4 = fused_phase("K4", with_sv=False, seed=4)
     torch.cuda.empty_cache()

@@ -6,24 +6,30 @@ CUDA kernels for Hopper (``ops/window_partials.py``).  The Sv path:
 ``calibrate.compute_Sv`` -> ``commongrid.compute_MVBS`` / ``compute_NASC``,
 and the fused survey-processing step ``parallel.survey_pipeline_step``
 (power -> Sv and MVBS in one pass, on the CUDA kernels of
-``ops/sv_bin_partials.py``).  Host-only pieces (conversion, EchoData,
-parameter resolution, provenance) are reused from ``echopype_tpu`` without
-importing JAX (``_host.py``).  Entry points take ``device=`` ("cuda" by
-default; "cpu" runs the plain PyTorch twins of the kernels).
+``ops/sv_bin_partials.py``).  The host-only layer (``convert``,
+``echodata``, ``xrlite``, ``storage``, ``native``, calibration parameter
+resolution, ``utils``) is the port's own copy of the reference package's,
+in the same layout; the port imports nothing of ``echopype_tpu``.  Entry
+points take ``device=`` ("cuda" by default; "cpu" runs the plain PyTorch
+twins of the kernels).
 """
 
 from . import calibrate, commongrid  # noqa: F401
-from ._host import open_raw  # noqa: F401
 from .commongrid import compute_MVBS, compute_MVBS_index_binning, compute_NASC  # noqa: F401
+from .convert.api import open_raw  # noqa: F401
+from .echodata.api import open_converted  # noqa: F401
+from .echodata.echodata import EchoData  # noqa: F401
 from .parallel import survey_pipeline_step  # noqa: F401
 from .parallel.survey import run_survey_mvbs_from_raw  # noqa: F401
 
 __all__ = [
+    "EchoData",
     "calibrate",
     "commongrid",
     "compute_MVBS",
     "compute_MVBS_index_binning",
     "compute_NASC",
+    "open_converted",
     "open_raw",
     "run_survey_mvbs_from_raw",
     "survey_pipeline_step",

@@ -8,7 +8,8 @@ yet (ROADMAP Queue 1 items 6-8) and raise ``NotImplementedError``.
 
 from __future__ import annotations
 
-from .._host import Dataset, echopype_prov_attrs, source_files_vars
+from ..utils.prov import echopype_prov_attrs, source_files_vars
+from ..xrlite import Dataset
 from .ek import CalibrateEK60
 
 __all__ = ["compute_Sv", "compute_TS"]

@@ -11,15 +11,12 @@ from __future__ import annotations
 
 import numpy as np
 
-from .._host import (
-    DataArray,
-    Dataset,
-    _init_logger,
-    get_cal_params_EK,
-    get_env_params_EK,
-    tvg_shift_meters,
-)
 from ..ops.calibration import ek_power_cal
+from ..utils.log import _init_logger
+from ..xrlite import DataArray, Dataset
+from .cal_params import get_cal_params_EK
+from .env_params import get_env_params_EK
+from .range import tvg_shift_meters
 
 logger = _init_logger(__name__)
 

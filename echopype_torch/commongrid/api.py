@@ -16,15 +16,11 @@ import warnings
 import numpy as np
 import torch
 
-from .._host import (
-    Dataset,
-    add_processing_level,
-    echopype_prov_attrs,
-    insert_input_processing_level,
-)
 from ..device import resolve_device
 from ..ops import binning
 from ..utils.compute import _lin2log, _log2lin
+from ..utils.prov import add_processing_level, echopype_prov_attrs, insert_input_processing_level
+from ..xrlite import Dataset
 from .utils import (
     _binned_mean_to_db,
     _parse_x_bin,

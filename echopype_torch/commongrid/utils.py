@@ -17,8 +17,9 @@ from fractions import Fraction
 
 import numpy as np
 
-from .._host import Dataset, pairwise_distance_nmi
 from ..utils.compute import _lin2log
+from ..utils.geodesy import pairwise_distance_nmi
+from ..xrlite import Dataset
 
 __all__ = [
     "POSITION_VARIABLES",

@@ -36,7 +36,7 @@ from ..ops.sv_bin_partials import (
     mvbs_core_fused,
     sv_mvbs_core_fused,
 )
-from ..ops.window_partials import window_partials, window_partials_uniform
+from ..ops.window_partials import slab_plan, window_partials, window_partials_uniform
 
 __all__ = [
     "_prefix_gather_diff",
@@ -151,10 +151,11 @@ def kernel_inputs_from_numpy(power, dr, tvg_shift, absorption, offset, valid_len
     [C, P, R] int16 indices; dr, tvg_shift, absorption, offset [C, P];
     valid_len [C, P]; x_rel [P] sorted window-relative ping-bin ids (padding
     parked at ``n_x_window``); r_edges [n_r+1] metres.  Builds on the host
-    the window ping bounds ``xb``, the range-bin bounds and ``k0``, and for
-    K1 the per-channel rows ``sprd_row`` (-inf below k0) and ``rt2_row``;
-    returns a dict of tensors on ``device`` keyed by the kernel's argument
-    names.  The host-to-device copies are synchronous.
+    the window ping bounds ``xb`` and the kernels' slab ``plan``
+    (``ops/window_partials.py::slab_plan``), the range-bin bounds and
+    ``k0``, and for K1 the per-channel rows ``sprd_row`` (-inf below k0) and
+    ``rt2_row``; returns a dict of tensors on ``device`` keyed by the
+    kernel's argument names.  The host-to-device copies are synchronous.
     """
     power = np.asarray(power)
     if power.dtype != np.int16:
@@ -180,6 +181,7 @@ def kernel_inputs_from_numpy(power, dr, tvg_shift, absorption, offset, valid_len
         "offset": dev(offset),
         "valid_len": dev(valid_len, "i4"),
         "xb": dev(xb, "i4"),
+        "plan": dev(slab_plan(xb), "i4"),
     }
     if uniform:
         bounds = np.clip(bounds, k0[:, None], np.float32(R))

@@ -23,21 +23,18 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from .._host import (
-    INDEX2POWER,
-    CorruptDatagramError,
-    Dataset,
-    _init_logger,
-    is_remote_path,
-    native,
-    open_raw,
-    scan_ek_extent,
-)
+from .. import native
 from ..calibrate.ek import CalibrateEK60
 from ..commongrid.utils import _parse_x_bin, ping_time_bin_edges
+from ..convert.api import open_raw
+from ..convert.simrad.decode import INDEX2POWER
+from ..convert.simrad.framing import CorruptDatagramError, scan_ek_extent
 from ..device import resolve_device
 from ..utils.compute import _lin2log
+from ..utils.io import is_remote_path
+from ..utils.log import _init_logger
 from ..utils.profiling import StageTimer
+from ..xrlite import Dataset
 from .pipeline import (
     closed_bounds_k0_np,
     closed_window_counts_np,

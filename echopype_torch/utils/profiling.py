@@ -15,7 +15,7 @@ from collections import defaultdict
 
 import torch
 
-from .._host import _init_logger
+from .log import _init_logger
 
 logger = _init_logger(__name__)
 

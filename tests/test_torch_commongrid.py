@@ -2,7 +2,9 @@
 
 ``echopype_torch.commongrid`` (device="cpu": the same torch ops the card
 runs, on the host) against ``echopype_tpu.commongrid`` on the same Sv
-datasets (one ``xrlite.Dataset`` feeds both).  Tolerances: MVBS within
+datasets: each package gets its own ``xrlite.Dataset``, built from the same
+numpy arrays (the port checks ``isinstance`` against its own classes).
+Tolerances: MVBS within
 1e-5 dB (the accuracy contract; float32 bin sums in another order),
 NASC rtol 1e-5, the float64 paths (ping-varying grids, index binning,
 positions, distance) within 1e-9; coords, NaN masks and attrs identical
@@ -19,8 +21,9 @@ import echopype_tpu as ep
 from echopype_torch.commongrid import utils as tu
 from echopype_torch.ops import binning as tb
 from echopype_tpu.commongrid import utils as ju
+from echopype_torch.xrlite import Dataset as TDataset
 from echopype_tpu.ops import binning as jb
-from echopype_tpu.xrlite import Dataset
+from echopype_tpu.xrlite import Dataset as JDataset
 
 torch.set_num_threads(1)
 
@@ -30,8 +33,9 @@ F8_TOL = dict(rtol=1e-9, atol=1e-9)
 _CLOCK_ATTRS = ("processing_time",)
 
 
-def make_sv_dataset(n_ch=2, n_ping=60, n_r=100, seed=0, with_latlon=True, dr=0.5):
-    """tests/test_commongrid.py::make_sv_dataset."""
+def make_sv_dataset(Dataset, n_ch=2, n_ping=60, n_r=100, seed=0, with_latlon=True, dr=0.5):
+    """tests/test_commongrid.py::make_sv_dataset, as a ``Dataset`` of the given
+    package; the arrays depend on the arguments alone."""
     rng = np.random.default_rng(seed)
     ping_time = np.datetime64("2020-01-01T00:00:03", "ns") + (
         np.arange(n_ping) * np.timedelta64(2_000_000_000, "ns"))
@@ -56,37 +60,51 @@ def make_sv_dataset(n_ch=2, n_ping=60, n_r=100, seed=0, with_latlon=True, dr=0.5
     return ds
 
 
-def _mvbs_case(name):
-    """(dataset, compute_MVBS kwargs) for one branch of compute_MVBS."""
+def as_package(ds, Dataset):
+    """``ds`` rebuilt as a ``Dataset`` of another package, from copies of
+    its numpy arrays."""
+    def var(da):
+        return (da.dims, np.array(da.values), dict(da.attrs))
+
+    return Dataset({k: var(v) for k, v in ds.data_vars.items()},
+                   coords={k: var(v) for k, v in ds.coords.items()}, attrs=dict(ds.attrs))
+
+
+def _mvbs_case(name, Dataset):
+    """(dataset, compute_MVBS kwargs) for one branch of compute_MVBS, as a
+    ``Dataset`` of the given package."""
+    def make_sv_dataset_(**kw):
+        return make_sv_dataset(Dataset, **kw)
+
     kw = {}
     if name == "default":
-        ds = make_sv_dataset()
+        ds = make_sv_dataset_()
     elif name == "closed_right":
-        ds, kw = make_sv_dataset(n_ch=1, n_ping=20, n_r=30), dict(range_bin="5m", closed="right")
+        ds, kw = make_sv_dataset_(n_ch=1, n_ping=20, n_r=30), dict(range_bin="5m", closed="right")
     elif name == "skipna_false":
-        ds, kw = make_sv_dataset(n_ch=1, n_ping=20, n_r=30), dict(range_bin="5m", skipna=False)
+        ds, kw = make_sv_dataset_(n_ch=1, n_ping=20, n_r=30), dict(range_bin="5m", skipna=False)
         ds.data_vars["Sv"].values[0, 0, 5] = np.nan
         ds.data_vars["Sv"].values[0, 12, :] = np.nan  # a whole NaN ping
     elif name == "range_var_max":
-        ds, kw = make_sv_dataset(n_r=40), dict(range_bin="10m", range_var_max="30m")
+        ds, kw = make_sv_dataset_(n_r=40), dict(range_bin="10m", range_var_max="30m")
     elif name == "fill_value":  # range_var_max past the data leaves empty bins
-        ds, kw = make_sv_dataset(n_r=40), dict(range_bin="5m", range_var_max="40m",
+        ds, kw = make_sv_dataset_(n_r=40), dict(range_bin="5m", range_var_max="40m",
                                                fill_value=1e-9)
     elif name == "fill_value_skipna_false":
-        ds = make_sv_dataset(n_r=40)
+        ds = make_sv_dataset_(n_r=40)
         ds.data_vars["Sv"].values[:, 7, :] = np.nan
         kw = dict(range_bin="5m", range_var_max="40m", fill_value=1e-9, skipna=False)
     elif name == "depth":
-        ds = make_sv_dataset()
+        ds = make_sv_dataset_()
         ds["depth"] = (("channel", "ping_time", "range_sample"),
                        np.asarray(ds["echo_range"].values) + 3.2)
         kw = dict(range_var="depth", range_bin="7m")
     elif name == "range_row":  # echo_range carried as one row per channel
-        ds = make_sv_dataset(seed=3)
+        ds = make_sv_dataset_(seed=3)
         ds["echo_range"] = (("channel", "range_sample"),
                             np.asarray(ds["echo_range"].values)[:, 0, :].copy())
     elif name == "unsorted_pings":
-        ds = make_sv_dataset(seed=1)
+        ds = make_sv_dataset_(seed=1)
         order = np.random.default_rng(1).permutation(ds.sizes["ping_time"])
         ds = Dataset(
             {
@@ -105,25 +123,25 @@ def _mvbs_case(name):
             attrs={"processing_level": "Level 2A"},
         )
     elif name == "upward_looking":
-        ds = make_sv_dataset(seed=2)
+        ds = make_sv_dataset_(seed=2)
         er = np.asarray(ds["echo_range"].values)
         ds["echo_range"] = (("channel", "ping_time", "range_sample"), er[:, :, ::-1].copy())
     elif name == "ping_varying_grid":  # the exact float64 host path
-        ds = make_sv_dataset(seed=4)
+        ds = make_sv_dataset_(seed=4)
         er = np.asarray(ds["echo_range"].values)
         wobble = np.random.default_rng(4).uniform(0.98, 1.02, er.shape[:2])[:, :, None]
         ds["echo_range"] = (("channel", "ping_time", "range_sample"), er * wobble)
     elif name == "ragged_nan_range":  # echo_range NaN where a ping is short
-        ds = make_sv_dataset(seed=5)
+        ds = make_sv_dataset_(seed=5)
         ds.data_vars["Sv"].values[:, 3, 70:] = np.nan
         ds.data_vars["echo_range"].values[:, 3, 70:] = np.nan
     elif name == "no_latlon":
-        ds = make_sv_dataset(with_latlon=False)
+        ds = make_sv_dataset_(with_latlon=False)
     elif name == "level_2b":
-        ds = make_sv_dataset()
+        ds = make_sv_dataset_()
         ds.attrs["processing_level"] = "Level 2B"
     elif name == "time_bin_30s":
-        ds, kw = make_sv_dataset(n_ping=90), dict(ping_time_bin="0.5min", range_bin="12.5m")
+        ds, kw = make_sv_dataset_(n_ping=90), dict(ping_time_bin="0.5min", range_bin="12.5m")
     else:
         raise KeyError(name)
     return ds, kw
@@ -160,9 +178,9 @@ def assert_same_dataset(got, want, atol, rtol=0.0):
 class TestComputeMVBS:
     @pytest.mark.parametrize("case", MVBS_CASES)
     def test_matches_jax(self, case):
-        ds, kw = _mvbs_case(case)
+        ds, kw = _mvbs_case(case, TDataset)
         got = et.compute_MVBS(ds, device="cpu", **kw)
-        want = ep.commongrid.compute_MVBS(ds, **kw)
+        want = ep.commongrid.compute_MVBS(_mvbs_case(case, JDataset)[0], **kw)
         assert_same_dataset(got, want, atol=MVBS_ATOL_DB)
         assert np.isfinite(np.asarray(got["Sv"].values)).any()
 
@@ -177,7 +195,7 @@ class TestComputeMVBS:
         sv[:, 80:] = -100.0
         sv += rng.normal(0, 1, sv.shape).astype("f4")
         er = np.broadcast_to(np.arange(R, dtype="f4") * 0.5, (1, P, R)).copy()
-        ds = Dataset(coords={"channel": np.asarray(["ch"], dtype=object), "ping_time": pt,
+        ds = TDataset(coords={"channel": np.asarray(["ch"], dtype=object), "ping_time": pt,
                              "range_sample": np.arange(R)})
         ds["Sv"] = (("channel", "ping_time", "range_sample"), sv)
         ds["echo_range"] = (("channel", "ping_time", "range_sample"), er)
@@ -197,12 +215,12 @@ class TestComputeMVBS:
                                    equal_nan=True)
 
     def test_attrs_and_levels(self):
-        mvbs = et.compute_MVBS(make_sv_dataset(), device="cpu")
+        mvbs = et.compute_MVBS(make_sv_dataset(TDataset), device="cpu")
         assert mvbs.attrs["processing_function"] == "commongrid.compute_MVBS"
         assert mvbs.attrs["processing_level"] == "Level 3A"
         assert "input_processing_level" not in mvbs.attrs
         assert "processing_level" not in et.compute_MVBS(
-            make_sv_dataset(with_latlon=False), device="cpu").attrs
+            make_sv_dataset(TDataset, with_latlon=False), device="cpu").attrs
 
     @pytest.mark.parametrize("kw, exc", [
         (dict(range_bin="10 parsecs"), ValueError),
@@ -213,7 +231,7 @@ class TestComputeMVBS:
         (dict(ping_time_bin="1W"), ValueError),
     ])
     def test_bad_inputs(self, kw, exc):
-        ds = make_sv_dataset()
+        ds = make_sv_dataset(TDataset)
         with pytest.raises(exc):
             et.compute_MVBS(ds, device="cpu", **kw)
 
@@ -221,25 +239,27 @@ class TestComputeMVBS:
         if torch.cuda.is_available():
             pytest.skip("a CUDA device is present; this checks the no-fallback rule")
         with pytest.raises(RuntimeError, match="cuda"):
-            et.compute_MVBS(make_sv_dataset())
+            et.compute_MVBS(make_sv_dataset(TDataset))
 
 
 class TestIndexBinning:
     @pytest.mark.parametrize("shape, nums", [((1, 25, 35), (10, 10)), ((2, 60, 100), (7, 13)),
                                              ((2, 30, 40), (100, 100))])
     def test_matches_jax(self, shape, nums):
-        ds = make_sv_dataset(n_ch=shape[0], n_ping=shape[1], n_r=shape[2], seed=6)
-        ds.data_vars["Sv"].values[0, 2, 10:] = np.nan
-        ds.data_vars["echo_range"].values[0, 2, 10:] = np.nan
-        got = et.compute_MVBS_index_binning(ds, range_sample_num=nums[0], ping_num=nums[1],
+        ds_t, ds_j = (make_sv_dataset(D, n_ch=shape[0], n_ping=shape[1], n_r=shape[2], seed=6)
+                      for D in (TDataset, JDataset))
+        for ds in (ds_t, ds_j):
+            ds.data_vars["Sv"].values[0, 2, 10:] = np.nan
+            ds.data_vars["echo_range"].values[0, 2, 10:] = np.nan
+        got = et.compute_MVBS_index_binning(ds_t, range_sample_num=nums[0], ping_num=nums[1],
                                             device="cpu")
-        want = ep.commongrid.compute_MVBS_index_binning(ds, range_sample_num=nums[0],
+        want = ep.commongrid.compute_MVBS_index_binning(ds_j, range_sample_num=nums[0],
                                                         ping_num=nums[1])
         assert_same_dataset(got, want, **F8_TOL)
 
 
-def _nasc_dataset(seed=0, n_ping=40, n_r=50, const_sv=None, nan_positions=False):
-    ds = make_sv_dataset(n_ch=2, n_ping=n_ping, n_r=n_r, seed=seed)
+def _nasc_dataset(Dataset, seed=0, n_ping=40, n_r=50, const_sv=None, nan_positions=False):
+    ds = make_sv_dataset(Dataset, n_ch=2, n_ping=n_ping, n_r=n_r, seed=seed)
     if const_sv is not None:
         ds.data_vars["Sv"].values[:] = const_sv
     ds["depth"] = (("channel", "ping_time", "range_sample"),
@@ -261,27 +281,29 @@ class TestComputeNASC:
         (dict(range_bin="10m", dist_bin="0.5nmi"), dict(const_sv=-60.0)),
     ], ids=["default", "fine", "closed_right", "skipna_false", "nan_positions", "constant_sv"])
     def test_matches_jax(self, kw, data):
-        ds = _nasc_dataset(**data)
+        ds_t, ds_j = (_nasc_dataset(D, **data) for D in (TDataset, JDataset))
         if kw.get("skipna") is False:
-            ds.data_vars["Sv"].values[1, 4, 7] = np.nan
-        got = et.compute_NASC(ds, device="cpu", **kw)
-        want = ep.commongrid.compute_NASC(ds, **kw)
+            for ds in (ds_t, ds_j):
+                ds.data_vars["Sv"].values[1, 4, 7] = np.nan
+        got = et.compute_NASC(ds_t, device="cpu", **kw)
+        want = ep.commongrid.compute_NASC(ds_j, **kw)
         assert_same_dataset(got, want, atol=0.0, rtol=NASC_RTOL)
         assert np.isfinite(np.asarray(got["NASC"].values)).any()
 
     def test_ping_varying_depth_grid(self):
-        ds = _nasc_dataset(seed=4)
-        dep = np.asarray(ds["depth"].values)
-        ds["depth"] = (("channel", "ping_time", "range_sample"),
-                       dep * np.random.default_rng(4).uniform(0.98, 1.02, dep.shape[:2])[:, :, None])
-        got = et.compute_NASC(ds, range_bin="5m", dist_bin="0.1nmi", device="cpu")
-        want = ep.commongrid.compute_NASC(ds, range_bin="5m", dist_bin="0.1nmi")
+        ds_t, ds_j = (_nasc_dataset(D, seed=4) for D in (TDataset, JDataset))
+        dep = np.asarray(ds_t["depth"].values)
+        dep = dep * np.random.default_rng(4).uniform(0.98, 1.02, dep.shape[:2])[:, :, None]
+        for ds in (ds_t, ds_j):
+            ds["depth"] = (("channel", "ping_time", "range_sample"), dep.copy())
+        got = et.compute_NASC(ds_t, range_bin="5m", dist_bin="0.1nmi", device="cpu")
+        want = ep.commongrid.compute_NASC(ds_j, range_bin="5m", dist_bin="0.1nmi")
         assert_same_dataset(got, want, **F8_TOL)
 
     def test_constant_sv_analytic(self):
         """tests/test_commongrid.py::TestNASC: NASC = sv_lin * H * 4 pi 1852^2."""
         n_ping, n_r = 40, 50
-        ds = make_sv_dataset(n_ch=1, n_ping=n_ping, n_r=n_r, dr=0.5)
+        ds = make_sv_dataset(TDataset, n_ch=1, n_ping=n_ping, n_r=n_r, dr=0.5)
         ds.data_vars["Sv"].values[:] = -60.0
         ds["depth"] = (("channel", "ping_time", "range_sample"), ds["echo_range"].values)
         v = et.compute_NASC(ds, range_bin="10m", dist_bin="0.5nmi", device="cpu")["NASC"].values
@@ -294,11 +316,11 @@ class TestComputeNASC:
     ])
     def test_bad_inputs(self, kw, exc):
         with pytest.raises(exc):
-            et.compute_NASC(_nasc_dataset(), device="cpu", **kw)
+            et.compute_NASC(_nasc_dataset(TDataset), device="cpu", **kw)
 
     def test_requires_depth(self):
         with pytest.raises(ValueError, match="depth"):
-            et.compute_NASC(make_sv_dataset(), device="cpu")
+            et.compute_NASC(make_sv_dataset(TDataset), device="cpu")
 
 
 class TestUtils:
@@ -333,24 +355,24 @@ class TestUtils:
                                           ju._binned_mean_to_db(sums, counts, nans, fill))
 
     def test_distance_and_positions(self):
-        ds = _nasc_dataset(nan_positions=True)
-        d_t, d_j = tu.get_distance_from_latlon(ds), ju.get_distance_from_latlon(ds)
+        ds_t, ds_j = (_nasc_dataset(D, nan_positions=True) for D in (TDataset, JDataset))
+        d_t, d_j = tu.get_distance_from_latlon(ds_t), ju.get_distance_from_latlon(ds_j)
         np.testing.assert_allclose(d_t, d_j, **F8_TOL)
         assert np.all(np.diff(d_t) >= 0)
-        x_idx = np.arange(ds.sizes["ping_time"]) // 7 - 1
-        got = tu.get_reduced_positions(ds, Dataset(coords={"x": np.arange(5)}), "x", x_idx, 5)
-        want = ju.get_reduced_positions(ds, Dataset(coords={"x": np.arange(5)}), "x", x_idx, 5)
+        x_idx = np.arange(ds_t.sizes["ping_time"]) // 7 - 1
+        got = tu.get_reduced_positions(ds_t, TDataset(coords={"x": np.arange(5)}), "x", x_idx, 5)
+        want = ju.get_reduced_positions(ds_j, JDataset(coords={"x": np.arange(5)}), "x", x_idx, 5)
         for var in ("latitude", "longitude"):
             np.testing.assert_allclose(got[var].values, want[var].values, **F8_TOL)
-        nan_ds = make_sv_dataset()
+        nan_ds = make_sv_dataset(TDataset)
         nan_ds["latitude"] = (("ping_time",), np.full(nan_ds.sizes["ping_time"], np.nan))
         with pytest.raises(ValueError, match="NaN"):
             tu.get_distance_from_latlon(nan_ds)
 
     def test_assign_actual_range(self):
-        mvbs = et.compute_MVBS(make_sv_dataset(), device="cpu")
+        mvbs = et.compute_MVBS(make_sv_dataset(TDataset), device="cpu")
         assert tu.assign_actual_range(mvbs).attrs["actual_range"] == \
-            ju.assign_actual_range(mvbs).attrs["actual_range"]
+            ju.assign_actual_range(as_package(mvbs, JDataset)).attrs["actual_range"]
 
 
 class TestBinningOps:

@@ -1,14 +1,14 @@
-"""The port must run where neither jax nor pandas is installed.
+"""The port must run where neither jax, pandas nor the JAX package is installed.
 
-A subprocess refuses ``jax``, ``jaxlib`` and ``pandas`` from a
-``sys.meta_path`` finder, imports echopype_torch and runs the raw->MVBS
-survey, ``compute_Sv`` -> ``compute_MVBS`` / ``compute_MVBS_index_binning``
-and the fused survey step on the CPU; none of the three may be loaded
-afterwards.  The package's
-sources must not import them either.
+A subprocess refuses ``jax``, ``jaxlib``, ``pandas`` and ``echopype_tpu``
+from a ``sys.meta_path`` finder, imports echopype_torch and runs the
+raw->MVBS survey, ``open_raw`` -> ``compute_Sv`` -> ``compute_MVBS`` /
+``compute_MVBS_index_binning`` and the fused survey step on the CPU; none of
+the four may be loaded afterwards.  An AST scan holds the package's sources
+and ``chip_smoke.py`` to the same rule, including imports inside functions.
 """
 
-import re
+import ast
 import subprocess
 import sys
 import textwrap
@@ -25,7 +25,7 @@ _SCRIPT = textwrap.dedent(
     import importlib.abc
     import sys
 
-    BLOCKED = ("jax", "jaxlib", "pandas")
+    BLOCKED = ("jax", "jaxlib", "pandas", "echopype_tpu")
 
     class Refuse(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
@@ -75,12 +75,37 @@ def test_port_runs_without_jax_or_pandas(tmp_path):
     assert "LOADED []" in res.stdout
 
 
+REFUSED_EVERYWHERE = ("jax", "jaxlib", "echopype_tpu")
+
+
+def _imports(path):
+    """(top-level package, line, at module level) of every absolute import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    top = {id(node) for node in tree.body}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno, id(node) in top
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno, id(node) in top
+
+
 def test_sources_never_import_jax_or_pandas():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|pandas)\b", re.M)
+    """No module of the port, and not chip_smoke.py, imports jax, jaxlib or
+    echopype_tpu anywhere, or pandas at module level (the card's machine has
+    none of them; xrlite reaches pandas only inside its pandas-export helpers)."""
     offenders = [
-        str(p.relative_to(REPO))
-        for p in sorted((REPO / "echopype_torch").rglob("*.py"))
-        if pattern.search(p.read_text())
+        f"{p.relative_to(REPO)}:{line} {root}"
+        for p in [*sorted((REPO / "echopype_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+        for root, line, at_top in _imports(p)
+        if root in REFUSED_EVERYWHERE or (root == "pandas" and at_top)
     ]
     assert offenders == []
-    assert not pattern.search((REPO / "chip_smoke.py").read_text())
+
+
+def test_import_scan_sees_nested_imports(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import pandas\n\ndef f():\n    from echopype_tpu.xrlite import Dataset\n"
+                   "    import jax.numpy\n")
+    assert sorted(_imports(src)) == [("echopype_tpu", 4, False), ("jax", 5, False),
+                                     ("pandas", 1, True)]

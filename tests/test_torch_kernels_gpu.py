@@ -12,9 +12,13 @@ shapes with the edge cases the survey produces: empty window bins, pings
 parked past the window, short and zero valid lengths, a first valid sample
 past bin edges; for K3 / K4 ragged NaN pings, interior NaNs, whole NaN
 pings, a TVG shift off the sample grid, rows longer than one shared-memory
-segment, and pings outside the ping bins.  Counts exact, sums within rtol
-1e-5 (float32 sums in another order), Sv within rtol / atol 1e-5 with
-identical NaN masks, reruns bit-identical, one launch counted per call.
+segment, and pings outside the ping bins.  K1 / K2 also at the slab
+plan's edges: one window (many slabs), one ping a window, windows longer
+than one slab, and rows of R = 4001 (not 16-byte aligned: scalar loads).
+Counts exact, sums within rtol 1e-5 (float32 sums in another order), Sv
+within rtol / atol 1e-5 with identical NaN masks, reruns bit-identical, one
+launch counted per call; K1 / K2 give the same partials under another slab
+split of the same windows.
 """
 
 import numpy as np
@@ -37,7 +41,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _chunk(seed, C=3, P=300, R=700, W=9, vary_dr=False):
+def _chunk(seed, C=3, P=300, R=700, W=9, vary_dr=False, ids=None):
     rng = np.random.default_rng(seed)
     power = rng.integers(-12000, -2000, (C, P, R)).astype(np.int16)
     dr = np.tile(rng.uniform(0.15, 0.25, (C, 1)), (1, P)).astype("f4")
@@ -49,8 +53,9 @@ def _chunk(seed, C=3, P=300, R=700, W=9, vary_dr=False):
     vl = np.full((C, P), R, "i4")
     vl[:, ::11] = rng.integers(0, R, vl[:, ::11].shape)
     vl[:, ::29] = 0
-    ids = np.sort(rng.integers(0, W - 2, P))  # the last window bins stay empty
-    ids[-15:] = W  # parked padding
+    if ids is None:
+        ids = np.sort(rng.integers(0, W - 2, P))  # the last window bins stay empty
+        ids[-15:] = W  # parked padding
     edges = np.arange(0, 0.25 * R + 7.0, 7.0).astype("f4")
     return power, dr, shift, ab, off, vl, ids.astype("i4"), edges, W
 
@@ -61,22 +66,33 @@ def _compare(kernel, plain, counted, ops):
     again = kernel(**ops)
     torch.cuda.synchronize()
     assert wp.LAUNCHES[counted] == 2
-    want = plain(**ops)
+    want = plain(**{k: v for k, v in ops.items() if k != "plan"})
     for g, a in zip(got, again):
         assert torch.equal(g, a), "rerun not bit-identical"
     s_g, c_g = (t.cpu().numpy() for t in got)
     s_w, c_w = (t.cpu().numpy() for t in want)
     np.testing.assert_array_equal(c_g, c_w)
     np.testing.assert_allclose(s_g, s_w, rtol=1e-5, atol=1e-30)
-    assert (c_g > 0).any() and (c_g == 0).any()
+    # another work split of the same windows (a slab a ping): the same
+    # windows' partials, the sums added in another order
+    saved, wp.SLAB_PINGS = wp.SLAB_PINGS, 1
+    try:
+        per_ping = torch.from_numpy(wp.slab_plan(ops["xb"].cpu().numpy())).to(ops["plan"].device)
+    finally:
+        wp.SLAB_PINGS = saved
+    s_o, c_o = (t.cpu().numpy() for t in kernel(**{**ops, "plan": per_ping}))
+    np.testing.assert_array_equal(c_o, c_g)
+    np.testing.assert_allclose(s_o, s_g, rtol=1e-5, atol=1e-30)
+    return c_g
 
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_k1_matches_plain(cuda, seed):
     args = _chunk(seed)
     ops = kernel_inputs_from_numpy(*args, uniform=True, device=cuda)
-    _compare(wp.window_partials_uniform, wp.window_partials_uniform_plain,
-             "window_partials_uniform", ops)
+    c_g = _compare(wp.window_partials_uniform, wp.window_partials_uniform_plain,
+                   "window_partials_uniform", ops)
+    assert (c_g > 0).any() and (c_g == 0).any()
     sums_only = wp.window_partials_uniform(**ops, with_counts=False)
     assert torch.equal(sums_only, wp.window_partials_uniform(**ops)[0])
 
@@ -85,7 +101,33 @@ def test_k1_matches_plain(cuda, seed):
 def test_k2_matches_plain(cuda, seed):
     args = _chunk(seed, vary_dr=True)
     ops = kernel_inputs_from_numpy(*args, uniform=False, device=cuda)
-    _compare(wp.window_partials, wp.window_partials_plain, "window_partials", ops)
+    c_g = _compare(wp.window_partials, wp.window_partials_plain, "window_partials", ops)
+    assert (c_g > 0).any() and (c_g == 0).any()
+
+
+# (P, R, W, ping-bin ids): the slab plan's edge cases
+SLAB_CASES = {
+    "one_window": (300, 700, 1, np.zeros(300, "i4")),           # ~10 slabs, combined
+    "ping_per_window": (120, 700, 120, np.arange(120, dtype="i4")),  # one slab each, direct
+    "long_windows": (300, 700, 3, np.repeat(np.arange(3), 100).astype("i4")),
+    "unaligned_rows": (150, 4001, 4, np.sort(np.arange(150) % 4).astype("i4")),
+}
+
+
+@pytest.mark.parametrize("uniform", [True, False], ids=["K1", "K2"])
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_slab_plan_edges_match_plain(cuda, uniform, case):
+    P, R, W, ids = SLAB_CASES[case]
+    ops = kernel_inputs_from_numpy(*_chunk(7, P=P, R=R, W=W, vary_dr=not uniform, ids=ids),
+                                   uniform=uniform, device=cuda)
+    if uniform:
+        c_g = _compare(wp.window_partials_uniform, wp.window_partials_uniform_plain,
+                       "window_partials_uniform", ops)
+        sums_only = wp.window_partials_uniform(**ops, with_counts=False)
+        assert torch.equal(sums_only, wp.window_partials_uniform(**ops)[0])
+    else:
+        c_g = _compare(wp.window_partials, wp.window_partials_plain, "window_partials", ops)
+    assert (c_g > 0).any()
 
 
 def test_cuda_and_cpu_dispatch_agree(cuda):
@@ -108,6 +150,8 @@ def test_wrapper_rejects_bad_operands(cuda):
                                       .contiguous().transpose(1, 2)})
     with pytest.raises(ValueError, match="is on cpu"):
         wp.window_partials_uniform(**{**ops, "xb": ops["xb"].cpu()})
+    with pytest.raises(ValueError, match="plan"):
+        wp.window_partials_uniform(**{**ops, "plan": ops["plan"][:4].contiguous()})
     assert wp.LAUNCHES["window_partials_uniform"] == 0
 
 

@@ -260,3 +260,132 @@ class TestDispatch:
             pytest.skip("a CUDA device is present; this checks the no-fallback rule")
         with pytest.raises(RuntimeError, match="cuda"):
             tp.sv_mvbs_window_partials_uniform(*_uniform_inputs())
+
+
+def _plan_parts(plan, xb):
+    """Slab ping bounds ``sb`` (slab s is pings [sb[s], sb[s+1])) and each
+    window's first slab ``wf``, as the kernels read ``slab_plan(xb)``."""
+    xb = np.asarray(xb, dtype="i8")
+    W = xb.size - 1
+    n_slabs = plan.size - W - 1
+    sw, wf = plan[:n_slabs].astype("i8"), plan[n_slabs:].astype("i8")
+    i, n = np.arange(n_slabs) - wf[sw], np.diff(wf)[sw]
+    sb = np.append(xb[sw] + i * np.diff(xb)[sw] // n, xb[-1])
+    return sb, wf
+
+
+class TestSlabPlan:
+    """ops/window_partials.py::slab_plan, the host work split of K1 / K2:
+    slabs tile every window, never cross one, hold at most SLAB_PINGS pings,
+    and every window (empty ones too) owns at least one slab.  The slab
+    length is the module's constant, set here per case."""
+
+    @pytest.mark.parametrize("xb", [
+        [0, 5000],                                   # W = 1: one long window
+        list(range(0, 301)),                         # W = P: one ping a window
+        [0, 20, 20, 20, 75, 75, 190, 191, 191],      # empty windows between
+        [13, 13],                                    # one empty window
+        [7],                                         # W = 0
+        [3, 35, 67, 68],                             # windows of exactly 32 pings
+    ], ids=["one_window", "ping_per_window", "empty_windows", "only_empty", "no_window",
+            "slab_sized"])
+    @pytest.mark.parametrize("slab_pings", [1, 16, wp.SLAB_PINGS])
+    def test_tiles_windows(self, xb, slab_pings, monkeypatch):
+        monkeypatch.setattr(wp, "SLAB_PINGS", slab_pings)
+        xb = np.asarray(xb)
+        W = xb.size - 1
+        plan = wp.slab_plan(xb)
+        assert plan.dtype == np.int32
+        sb, wf = _plan_parts(plan, xb)
+        assert sb[0] == xb[0] and sb[-1] == xb[-1] and np.all(np.diff(sb) >= 0)
+        assert wf[0] == 0 and wf[-1] == sb.size - 1 and np.all(np.diff(wf) >= 1)
+        assert np.all(np.diff(sb) <= slab_pings)
+        for w in range(W):  # window w's slabs start and end on its bounds
+            assert sb[wf[w]] == xb[w] and sb[wf[w + 1]] == xb[w + 1]
+            lens = np.diff(sb[wf[w]: wf[w + 1] + 1])
+            n = max(1, -(-(xb[w + 1] - xb[w]) // slab_pings))
+            assert lens.size == n and lens.max() - lens.min() <= 1  # near-equal slabs
+
+    def test_one_window_fills_the_card(self):
+        """W = 1 still gives P / SLAB_PINGS blocks a channel."""
+        plan = wp.slab_plan([0, 5000])
+        assert plan.size - 1 - 1 == -(-5000 // wp.SLAB_PINGS)
+
+    def test_one_slab_per_window_is_direct(self):
+        """Windows of at most SLAB_PINGS pings: slab s is window s (the
+        kernel then writes the outputs directly, no combine pass)."""
+        xb = np.array([0, 20, 20, 52, 60])
+        plan = wp.slab_plan(xb)
+        np.testing.assert_array_equal(plan[:4], np.arange(4))  # slab s is window s
+        sb, wf = _plan_parts(plan, xb)
+        np.testing.assert_array_equal(sb, xb)
+        np.testing.assert_array_equal(wf, np.arange(5))
+
+    @pytest.mark.parametrize("xb", [[], [[0, 1]], [0, 5, 3]])
+    def test_rejects_bad_bounds(self, xb):
+        with pytest.raises(ValueError):
+            wp.slab_plan(np.asarray(xb))
+
+
+def _kernel_model(ops, uniform):
+    """The CUDA kernels' decomposition in float64 numpy: per (channel, slab)
+    per-sample sums over the slab's pings, masked k0 <= k < valid_len, then
+    range-bin sums; closed-form int counts per slab; slab partials added in
+    slab order per window."""
+    o = {k: _np(v) for k, v in ops.items()}
+    power = o["power"].astype("f8")
+    C, P, R = power.shape
+    bounds, vl = o["bounds"], o["valid_len"]
+    W = o["xb"].size - 1
+    sb, wf = _plan_parts(o["plan"], o["xb"])
+    k = np.arange(R)
+    if uniform:
+        sv = (power * wp.INDEX2POWER + o["sprd_row"][:, None, :]
+              + o["absorption"][..., None] * o["rt2_row"][:, None, :] + o["offset"][..., None])
+        k0 = np.zeros((C, P), "i8")
+    else:
+        r = k * o["dr"][..., None].astype("f8") - o["tvg_shift"][..., None]
+        sv = (power * wp.INDEX2POWER + 20 * np.log10(np.maximum(r, 1e-20))
+              + 2 * o["absorption"][..., None] * r + o["offset"][..., None])
+        k0 = o["k0"]
+    valid = (k >= k0[..., None]) & (k < vl[..., None])
+    lin = np.where(valid, np.exp(sv * wp.LN10_OVER_10), 0.0)
+    n_slabs, n_r = sb.size - 1, bounds.shape[1] - 1
+    ps = np.zeros((C, n_slabs, n_r))
+    pc = np.zeros((C, n_slabs, n_r), "i8")
+    for c in range(C):
+        for s in range(n_slabs):
+            per_sample = lin[c, sb[s]: sb[s + 1]].sum(axis=0)
+            for b in range(n_r):
+                lo, hi = bounds[c, b], bounds[c, b + 1]
+                ps[c, s, b] = per_sample[lo:hi].sum()
+                pc[c, s, b] = np.maximum(
+                    0, np.minimum(hi, vl[c, sb[s]: sb[s + 1]])
+                    - np.maximum(lo, k0[c, sb[s]: sb[s + 1]])).sum()
+    sums = np.stack([ps[:, wf[w]: wf[w + 1]].sum(axis=1) for w in range(W)], axis=1)
+    counts = np.stack([pc[:, wf[w]: wf[w + 1]].sum(axis=1) for w in range(W)], axis=1)
+    return sums, counts
+
+
+class TestKernelDecomposition:
+    """What the CUDA kernels compute (slabs, per-sample sums, closed-form
+    counts, slab partials combined) equals the plain twins on the CPU:
+    counts exact, sums within RTOL (float64 model against float32 twin)."""
+
+    @pytest.mark.parametrize("uniform", [True, False], ids=["K1", "K2"])
+    @pytest.mark.parametrize("ids", ["windows", "one_window", "ping_per_window"])
+    def test_model_matches_twin(self, uniform, ids):
+        args = list(_varying_inputs(seed=4, vary_dr=not uniform)[:-1])
+        P = args[0].shape[1]
+        if ids == "one_window":
+            args[6], args[8] = np.zeros(P, "i4"), 1
+        elif ids == "ping_per_window":
+            args[6], args[8] = np.arange(P, dtype="i4"), P
+        args[6] = args[6].copy()
+        args[6][-3:] = args[8]  # parked padding past the last window
+        ops = tp.kernel_inputs_from_numpy(*args, uniform=uniform, device="cpu")
+        twin = (wp.window_partials_uniform_plain if uniform else wp.window_partials_plain)(
+            **{k: v for k, v in ops.items() if k != "plan"})
+        sums, counts = _kernel_model(ops, uniform)
+        np.testing.assert_array_equal(counts, _np(twin[1]))
+        np.testing.assert_allclose(sums, _np(twin[0]), rtol=RTOL, atol=ATOL)
