@@ -28,7 +28,8 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    dB power with a NaN suffix on every 97th ping and scattered interior
    NaNs, dr 0.18944 m, 20 m range bins, against its plain twin on the card:
    Sv within rtol 1e-5 / atol 1e-5 with identical NaN masks, counts exact,
-   sums within rtol 1e-5, two runs bit-identical, both timed;
+   sums within rtol 1e-5, two runs bit-identical, both timed, and its
+   share of the bound (bound ms / ms) at least 0.5;
 6. K4 (``mvbs_partials``) the same way for the partials;
 7. the survey end to end: three synthetic EK60 files (5 channels,
    18-200 kHz, 4,000 samples a ping; two of 10,000 pings, one of 5,000 whose
@@ -77,6 +78,7 @@ RANGE_BIN_M, PING_BIN_S = 20.0, 20
 SUM_RTOL, MVBS_ATOL_DB = 1e-5, 1e-4
 SV_RTOL = SV_ATOL = 1e-5  # tests/test_parallel.py:63; one f32 ulp at -90 dB is 7.6e-6
 K4_VS_K3_DB, NASC_RTOL = 1e-3, 1e-5
+MIN_SHARE_OF_BOUND = 0.5  # K3 / K4: bound_ms / ms at the full width
 E2E_PINGS = (10_000, 10_000, 5_000)  # files A, B (uniform dr) and C (dr by ping)
 KERNEL_SOURCES = ("window_partials", "sv_bin_partials")
 COARSE_PING_BIN_S = 4000  # two ping windows over a chunk's 5,000 pings
@@ -275,6 +277,8 @@ def fused_phase(name, with_sv, seed):
         moved_GBps=round(power_mb * (2 if with_sv else 1) / ms, 1))
     if not (sv_ok and counts_exact and bit_identical and max_rel <= SUM_RTOL):
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
+    if bound["bound_ms"] / ms < MIN_SHARE_OF_BOUND:
+        raise AssertionError(f"{name}: {ms:.4f} ms is under half its bound's speed")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
 
 

@@ -17,6 +17,13 @@ from the Pallas bodies, 0/1 matrix product included, and keep each body's
 formula: K3's ``exp(sv ln10/10)`` and K4's ``exp(...) r_tvg^2`` round
 differently (the JAX tests bound K3 at rtol 1e-4, K4 at 5e-4).
 
+A valid sample whose linear value is not finite (``inf`` from an absurd
+Sv, NaN in K4 from a NaN offset) spreads as the Pallas kernels' band
+product spreads it (``inf * 0`` is NaN): a ping's bin sum is NaN when any
+such sample of the ping, anywhere in ``[0, R)``, lies outside the bin, and
+otherwise the bin's own sum (``inf`` or NaN where the sample lies inside).
+Counts do not change.  The kernels and the twins agree on this.
+
 Dispatch is by the device of ``power``: a CUDA tensor launches the kernel
 (or raises), a CPU tensor runs the plain twin.  :data:`LAUNCHES` counts
 kernel launches only.  :func:`sv_mvbs_core_fused` and

@@ -15,6 +15,10 @@ pings, a TVG shift off the sample grid, rows longer than one shared-memory
 segment, and pings outside the ping bins.  K1 / K2 also at the slab
 plan's edges: one window (many slabs), one ping a window, windows longer
 than one slab, and rows of R = 4001 (not 16-byte aligned: scalar loads).
+K4 also at its work split's edges (bins narrower than a thread's 16
+samples, one-sample, empty and clipped bins, R = 4001 and 9000, P = 1 and
+P = 33), and K3 / K4 on poisoned rows (a valid sample whose linear value
+is not finite), where NaN / inf masks must equal the twins'.
 Counts exact, sums within rtol 1e-5 (float32 sums in another order), Sv
 within rtol / atol 1e-5 with identical NaN masks, reruns bit-identical, one
 launch counted per call; K1 / K2 give the same partials under another slab
@@ -161,7 +165,7 @@ def _fused_chunk(seed, C=3, P=157, R=700, n_x=9):
     for p in range(0, P, 13):
         power[:, p, int(rng.integers(0, R)):] = np.nan
     power[rng.random(power.shape) < 0.01] = np.nan
-    power[1, 5, :] = np.nan
+    power[1, 5 % P, :] = np.nan  # a whole NaN ping
     dr = np.tile(rng.uniform(0.15, 0.25, (C, 1)), (1, P)).astype("f4")
     shift = (dr * rng.uniform(0.5, 12.0, (C, 1))).astype("f4")
     ab = rng.uniform(0.001, 0.05, (C, P)).astype("f4")
@@ -175,10 +179,10 @@ def _bits(t):
     return t.view(torch.int32)
 
 
-@pytest.mark.parametrize("with_sv", [True, False], ids=["k3", "k4"])
-@pytest.mark.parametrize("R", [700, 9000], ids=["one_segment", "three_segments"])
-def test_fused_kernels_match_plain(cuda, with_sv, R):
-    ops, _ = sbp.fused_operands(*_fused_chunk(R, R=R), device=cuda)
+def _compare_fused(with_sv, ops):
+    """Kernel vs twin on the card: counts exact, equal NaN / inf masks of
+    the sums and the finite ones within rtol 1e-5, Sv within rtol / atol
+    1e-5 with identical NaN masks, a rerun bit-identical, one launch a call."""
     kernel = sbp.sv_bin_partials if with_sv else sbp.mvbs_partials
     plain = sbp.sv_bin_partials_plain if with_sv else sbp.mvbs_partials_plain
     name = "sv_bin_partials" if with_sv else "mvbs_partials"
@@ -196,8 +200,64 @@ def test_fused_kernels_match_plain(cuda, with_sv, R):
     s_g, c_g = (t.cpu().numpy() for t in got[-2:])
     s_w, c_w = (t.cpu().numpy() for t in want[-2:])
     np.testing.assert_array_equal(c_g, c_w)
-    np.testing.assert_allclose(s_g, s_w, rtol=1e-5, atol=1e-30)
+    np.testing.assert_array_equal(np.isnan(s_g), np.isnan(s_w))
+    np.testing.assert_array_equal(np.isinf(s_g), np.isinf(s_w))
+    fin = np.isfinite(s_w)
+    np.testing.assert_allclose(s_g[fin], s_w[fin], rtol=1e-5, atol=1e-30)
+    return s_g, c_g
+
+
+@pytest.mark.parametrize("with_sv", [True, False], ids=["k3", "k4"])
+@pytest.mark.parametrize("R", [700, 9000], ids=["one_segment", "three_segments"])
+def test_fused_kernels_match_plain(cuda, with_sv, R):
+    ops, _ = sbp.fused_operands(*_fused_chunk(R, R=R), device=cuda)
+    _, c_g = _compare_fused(with_sv, ops)
     assert (c_g > 0).any() and (c_g == 0).any()
+
+
+def _with_bounds(ops, rows):
+    b = torch.tensor(np.asarray(rows, "i4"), device=ops["power"].device)
+    return {**ops, "bounds": b.expand(ops["power"].shape[0], -1).contiguous()}
+
+
+# K4's work split at its edges: (P, R, bounds or None for 7 m bins)
+K4_CASES = {
+    "narrow_bins": (157, 700, np.concatenate([[2], 2 + np.cumsum(np.arange(40) % 13)])),
+    "one_sample_bins": (157, 700, np.concatenate([np.arange(50, 90), [300, 650]])),
+    "empty_and_clipped": (157, 700, [0, 40, 40, 200, 200, 700, 700, 700]),
+    "unaligned_rows": (40, 4001, None),
+    "long_rows": (40, 9000, None),
+    "one_ping": (1, 700, None),
+    "partial_slab": (33, 4000, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K4_CASES))
+def test_k4_work_split_edges_match_plain(cuda, case):
+    P, R, rows = K4_CASES[case]
+    ops, _ = sbp.fused_operands(*_fused_chunk(3, P=P, R=R), device=cuda)
+    if rows is not None:
+        ops = _with_bounds(ops, rows)
+    _, c_g = _compare_fused(False, ops)
+    assert (c_g > 0).any()
+
+
+@pytest.mark.parametrize("with_sv", [True, False], ids=["k3", "k4"])
+def test_fused_kernels_spread_nonfinite_as_plain(cuda, with_sv):
+    """Valid samples whose lin is not finite: NaN in every other bin of the
+    ping, as the twins' (and the Pallas kernels') band product gives it."""
+    power, dr, shift, ab, off, *rest = _fused_chunk(11, P=40, R=9000)
+    power[0, 3, 400] = 600.0                         # inside a bin
+    power[1, 4, 8990] = 600.0                        # at the row's end
+    power[2, 5, 100] = power[2, 5, 5000] = 600.0     # two bins, two segments
+    power[0, 6, 60] = power[0, 6, 61] = 600.0        # two in one bin
+    off[1, 7] = np.nan                               # K4: every valid lin NaN
+    ops, _ = sbp.fused_operands(power, dr, shift, ab, off, *rest, device=cuda)
+    s_g, _ = _compare_fused(with_sv, ops)
+    assert np.isnan(s_g).any() and np.isinf(s_g).any()
+    narrow = _with_bounds(ops, np.concatenate([[50], 50 + np.cumsum(np.arange(60) % 9)]))
+    _compare_fused(with_sv, narrow)
+    _compare_fused(with_sv, _with_bounds(ops, [0, 300, 100, 700, 9000]))  # decreasing
 
 
 def test_fused_cores_card_equals_cpu(cuda):
