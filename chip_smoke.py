@@ -39,14 +39,24 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    call on the CPU (plain twins) within 1e-4 dB with identical NaN masks
    and coordinates;
 8. the Sv grids end to end on file A: ``open_raw`` -> ``compute_Sv`` on the
-   card -> ``compute_MVBS`` (20 m x 20 s) and ``compute_NASC`` (depth and
-   synthetic positions attached), each against the same call on the CPU
-   (1e-4 dB, NASC rtol 1e-5, identical NaN masks); and
+   card -> ``compute_MVBS`` (20 m x 20 s) and ``compute_NASC`` (depth from
+   ``consolidate.add_depth`` with the Platform vertical offsets, and a
+   synthetic track), each against the same call on the CPU (1e-4 dB, NASC
+   rtol 1e-5, identical NaN masks); and
    ``survey_pipeline_step`` with and without Sv (K3, K4) on the same file's
    calibration inputs and compute_MVBS's grid: K3's Sv equals compute_Sv's
    (rtol/atol 1e-5, same NaN mask), its MVBS equals compute_MVBS's within
    1e-4 dB, K4's MVBS equals K3's within 1e-3 dB, one launch each;
-9. print the kernel table as one JSON line (launches on the main path,
+9. the Sv-store surveys: files A, B and C through open_raw -> compute_Sv
+   (card) -> add_depth -> track -> an uncompressed zarr store each, then
+   ``run_survey_mvbs`` (20 m x 20 s) and ``run_survey_nasc`` (10 m x 0.5
+   nmi) over the three stores on the card and on the CPU: MVBS within 1e-4
+   dB, NASC rtol 1e-5, identical NaN masks, coordinates and mean ping
+   times, finite share above 0.9; A and B take the grid route and C (sound
+   speed by ping) the per-ping route; no CUDA kernel launches; and each
+   streamer on A's store alone equals the Sv-grid phase's compute_MVBS /
+   compute_NASC on A (1e-4 dB, rtol 1e-5); stage seconds of every run;
+10. print the kernel table as one JSON line (launches on the main path,
    error, kernel / plain twin ms, bound ms and what sets it; no single
    PyTorch call computes any of the four functions, so ``library_ms`` is
    null), then the result line ``{"ok": true, "device": {...}}`` last.
@@ -304,15 +314,23 @@ def sv_grid_step_inputs(ed, ds_Sv, range_bin_m=RANGE_BIN_M, ping_time_bin=f"{PIN
     return (*args, x_idx, r_edges), len(edges) - 1, len(r_edges) - 1
 
 
-def attach_depth_and_positions(ds_Sv):
-    """depth = echo_range and a synthetic track, as the JAX package's NASC
-    dry run does (__graft_entry__.py::_dryrun_mesh_nasc)."""
+def add_depth_and_track(ed, ds_Sv, first_ping=0):
+    """A synthetic track continuing from survey ping ``first_ping``, in place
+    of ``consolidate.add_location`` (the synthetic files' GGA minutes run
+    past 59 after 60 pings, so their own positions are no usable track; the
+    JAX package's NASC dry run makes one the same way,
+    __graft_entry__.py::_dryrun_mesh_nasc), then ``consolidate.add_depth``
+    from the Platform vertical offsets where the file carries them, else a
+    scalar 5 m transducer depth."""
+    import echopype_torch as et
+
     n = ds_Sv.sizes["ping_time"]
-    ds_Sv["depth"] = (("channel", "ping_time", "range_sample"),
-                      np.asarray(ds_Sv["echo_range"].values).copy())
-    ds_Sv["latitude"] = (("ping_time",), 45.0 + np.arange(n) * 3e-5)
+    ds_Sv["latitude"] = (("ping_time",), 45.0 + (first_ping + np.arange(n)) * 3e-5)
     ds_Sv["longitude"] = (("ping_time",), np.full(n, -125.0))
-    return ds_Sv
+    platform = ed["Platform"]
+    if all(v in platform for v in ("water_level", "vertical_offset", "transducer_offset_z")):
+        return et.consolidate.add_depth(ds_Sv, echodata=ed, use_platform_vertical_offsets=True)
+    return et.consolidate.add_depth(ds_Sv, depth_offset=5.0)
 
 
 def _max_db(a, b):
@@ -322,7 +340,8 @@ def _max_db(a, b):
 
 def sv_grid_phase(path):
     """open_raw -> compute_Sv -> compute_MVBS / compute_NASC / the survey
-    step (K3, K4) on the card; returns the K3/K4 launches of the run."""
+    step (K3, K4) on the card; returns the K3/K4 launches of the run and
+    (the Sv dataset with depth and track, its card MVBS, its card NASC)."""
     import echopype_torch as et
     from echopype_torch.ops import sv_bin_partials as sbp
     from echopype_torch.ops import window_partials as wp
@@ -346,7 +365,7 @@ def sv_grid_phase(path):
     args, n_x, n_r = timed("step_inputs", lambda: sv_grid_step_inputs(ed, ds_Sv))
     sv3, m3 = timed("step_K3", lambda: et.survey_pipeline_step(None, n_x, n_r)(*args))
     m4 = timed("step_K4", lambda: et.survey_pipeline_step(None, n_x, n_r, with_sv=False)(*args))
-    ds_Sv = attach_depth_and_positions(ds_Sv)
+    ds_Sv = timed("add_depth", lambda: add_depth_and_track(ed, ds_Sv))
     nasc = timed("compute_NASC", lambda: et.compute_NASC(ds_Sv))
     launches = {**sbp.LAUNCHES, **wp.LAUNCHES}
     nasc_cpu = timed("compute_NASC_cpu", lambda: et.compute_NASC(ds_Sv, device="cpu"))
@@ -384,7 +403,115 @@ def sv_grid_phase(path):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"sv_grid phase failed: {failed}")
-    return launches
+    return launches, (ds_Sv, mvbs, nasc)
+
+
+def _same_coords(a, b, names):
+    return all(np.array_equal(np.asarray(a.coords[k].values), np.asarray(b.coords[k].values))
+               for k in names)
+
+
+def _nasc_rel(a, b):
+    a, b = np.asarray(a, dtype="f8"), np.asarray(b, dtype="f8")
+    ok = ~np.isnan(b) & (b != 0)
+    same_nan = bool(np.array_equal(np.isnan(a), np.isnan(b)))
+    return float(np.max(np.abs(a[ok] - b[ok]) / np.abs(b[ok]))), same_nan
+
+
+def sv_survey_phase(files, grid_a):
+    """Sv stores -> survey-wide MVBS and NASC (``run_survey_mvbs`` /
+    ``run_survey_nasc``) on the card and on the CPU.
+
+    Each raw file goes through open_raw -> compute_Sv (card) -> add_depth
+    and a synthetic track (file A's dataset comes from the Sv-grid phase),
+    and is written uncompressed to a zarr store by the port's writer; the
+    streamers reopen one store at a time.  No CUDA kernel of the port runs
+    here: the four launch counters must stay 0.
+    """
+    import echopype_torch as et
+    from echopype_torch.ops import sv_bin_partials as sbp
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.utils.profiling import StageTimer
+
+    ds_a, mvbs_a, nasc_a = grid_a
+    stores, first_ping, prep = [], 0, {}
+    for tag, path in zip("ABC", files):
+        t0 = time.perf_counter()
+        if tag == "A":
+            ds = ds_a
+        else:
+            ed = et.open_raw(path, sonar_model="EK60")
+            ds = add_depth_and_track(ed, et.calibrate.compute_Sv(ed, device="cuda"), first_ping)
+            del ed
+        store = DATA_DIR / f"SMOKE{tag}_Sv.zarr"
+        ds.to_zarr(store, compress=False)
+        first_ping += ds.sizes["ping_time"]
+        stores.append(str(store))
+        prep[tag] = round(time.perf_counter() - t0, 3)
+        del ds
+    del ds_a, grid_a
+
+    mvbs_kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s",
+                   chunk_pings=P)
+    nasc_kw = dict(chunk_pings=P)  # compute_NASC's defaults: 10 m x 0.5 nmi
+    runs, walls = {}, {}
+    sbp.reset_launches()
+    wp.reset_launches()
+    for name, fn, srcs, kw in (("mvbs", et.run_survey_mvbs, stores, mvbs_kw),
+                               ("nasc", et.run_survey_nasc, stores, nasc_kw),
+                               ("mvbs_A", et.run_survey_mvbs, stores[:1], mvbs_kw),
+                               ("nasc_A", et.run_survey_nasc, stores[:1], nasc_kw)):
+        for device in ("cuda", "cpu") if name in ("mvbs", "nasc") else ("cuda",):
+            t0 = time.perf_counter()
+            out = fn(srcs, timer=StageTimer(), device=device, **kw)
+            torch.cuda.synchronize()
+            walls[f"{name}_{device}"] = round(time.perf_counter() - t0, 3)
+            runs[f"{name}_{device}"] = out
+    launches = {**sbp.LAUNCHES, **wp.LAUNCHES}
+
+    g, w = (np.asarray(runs[f"mvbs_{d}"]["Sv"].values) for d in ("cuda", "cpu"))
+    mvbs_db, mvbs_nan = _max_db(g, w)
+    finite = float(np.isfinite(g).mean())
+    nasc_rel, nasc_nan = _nasc_rel(runs["nasc_cuda"]["NASC"].values,
+                                   runs["nasc_cpu"]["NASC"].values)
+    nasc_finite = float(np.isfinite(np.asarray(runs["nasc_cuda"]["NASC"].values)).mean())
+    a_db, a_nan = _max_db(runs["mvbs_A_cuda"]["Sv"].values, mvbs_a["Sv"].values)
+    a_rel, a_nasc_nan = _nasc_rel(runs["nasc_A_cuda"]["NASC"].values, nasc_a["NASC"].values)
+    routes = {k: v.attrs["routes"] for k, v in runs.items()}
+    say("sv_survey", pings=first_ping, prep_s=json.dumps(prep), walls_s=json.dumps(walls),
+        mvbs_shape=list(g.shape), nasc_shape=list(runs["nasc_cuda"]["NASC"].shape),
+        routes=json.dumps(routes), launches=json.dumps(launches),
+        mvbs_cuda_vs_cpu_dB=mvbs_db, nasc_cuda_vs_cpu_rel=nasc_rel,
+        mvbs_finite_share=round(finite, 4), nasc_finite_share=round(nasc_finite, 4),
+        A_vs_compute_MVBS_dB=a_db, A_vs_compute_NASC_rel=a_rel)
+    for k, v in runs.items():
+        print(f"[sv_survey_stages] {k} {v.attrs['stage_timing']}", flush=True)
+    three = ["grid", "grid", "per_ping"]
+    checks = {
+        "run_survey_mvbs cuda vs cpu": (
+            mvbs_nan and mvbs_db <= MVBS_ATOL_DB and finite > 0.9
+            and _same_coords(runs["mvbs_cuda"], runs["mvbs_cpu"],
+                             ("channel", "ping_time", "echo_range"))),
+        "run_survey_nasc cuda vs cpu": (
+            nasc_nan and nasc_rel <= NASC_RTOL and nasc_finite > 0.9
+            and _same_coords(runs["nasc_cuda"], runs["nasc_cpu"],
+                             ("channel", "distance", "depth"))
+            and np.array_equal(runs["nasc_cuda"]["ping_time"].values,
+                               runs["nasc_cpu"]["ping_time"].values)),
+        "routes": all(routes[k] == three for k in ("mvbs_cuda", "mvbs_cpu", "nasc_cuda",
+                                                   "nasc_cpu")),
+        "A vs compute_MVBS": (a_nan and a_db <= MVBS_ATOL_DB and _same_coords(
+            runs["mvbs_A_cuda"], mvbs_a, ("channel", "ping_time", "echo_range"))),
+        "A vs compute_NASC": (a_nasc_nan and a_rel <= NASC_RTOL and _same_coords(
+            runs["nasc_A_cuda"], nasc_a, ("channel", "distance", "depth"))),
+        "no kernel launches": not any(launches.values()),
+        "device attrs": all(v.attrs["device"] == ("cpu" if k.endswith("cpu") else
+                                                  torch.cuda.get_device_name(0))
+                            for k, v in runs.items()),
+    }
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"sv_survey phase failed: {failed}")
 
 
 def write_files():
@@ -462,7 +589,9 @@ def main():
         t0 = time.perf_counter()
         ref = et.run_survey_mvbs_from_raw(files, device="cpu", **kw)
         say("e2e_cpu", wall_s=round(time.perf_counter() - t0, 3))
-        sv_launches = sv_grid_phase(files[0])
+        sv_launches, grid_a = sv_grid_phase(files[0])
+        sv_survey_phase(files, grid_a)
+        del grid_a
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 

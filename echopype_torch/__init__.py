@@ -4,9 +4,11 @@ Two paths run here.  The survey path: EK60 ``.raw`` -> ``open_raw`` ->
 power-mode calibration -> MVBS, with the fused window step as hand-written
 CUDA kernels for Hopper (``ops/window_partials.py``).  The Sv path:
 ``calibrate.compute_Sv`` -> ``commongrid.compute_MVBS`` / ``compute_NASC``,
-and the fused survey-processing step ``parallel.survey_pipeline_step``
+the fused survey-processing step ``parallel.survey_pipeline_step``
 (power -> Sv and MVBS in one pass, on the CUDA kernels of
-``ops/sv_bin_partials.py``).  The host-only layer (``convert``,
+``ops/sv_bin_partials.py``), ``consolidate.add_depth`` / ``add_location`` /
+``add_splitbeam_angle``, and the Sv-store survey streamers
+``run_survey_mvbs`` / ``run_survey_nasc``.  The host-only layer (``convert``,
 ``echodata``, ``xrlite``, ``storage``, ``native``, calibration parameter
 resolution, ``utils``) is the port's own copy of the reference package's,
 in the same layout; the port imports nothing of ``echopype_tpu``.  Entry
@@ -14,23 +16,30 @@ points take ``device=`` ("cuda" by default; "cpu" runs the plain PyTorch
 twins of the kernels).
 """
 
-from . import calibrate, commongrid  # noqa: F401
+from . import calibrate, commongrid, consolidate  # noqa: F401
 from .commongrid import compute_MVBS, compute_MVBS_index_binning, compute_NASC  # noqa: F401
 from .convert.api import open_raw  # noqa: F401
 from .echodata.api import open_converted  # noqa: F401
 from .echodata.echodata import EchoData  # noqa: F401
 from .parallel import survey_pipeline_step  # noqa: F401
-from .parallel.survey import run_survey_mvbs_from_raw  # noqa: F401
+from .parallel.survey import (  # noqa: F401
+    run_survey_mvbs,
+    run_survey_mvbs_from_raw,
+    run_survey_nasc,
+)
 
 __all__ = [
     "EchoData",
     "calibrate",
     "commongrid",
+    "consolidate",
     "compute_MVBS",
     "compute_MVBS_index_binning",
     "compute_NASC",
     "open_converted",
     "open_raw",
+    "run_survey_mvbs",
     "run_survey_mvbs_from_raw",
+    "run_survey_nasc",
     "survey_pipeline_step",
 ]

@@ -2,8 +2,9 @@
 
 Counterpart of ``echopype_tpu/commongrid/utils.py`` (which imports pandas,
 so its helpers are copied here, not imported): bin-string parsing, the
-ping-time bin edges, along-track distance, position reduction and the
-flox fill semantics of the dB conversion.  The GPU machine has no pandas,
+ping-time bin edges, along-track distance, position reduction, the
+flox fill semantics of the dB conversion, and the raw MVBS / NASC entry
+points on caller-provided bins.  The GPU machine has no pandas,
 so the ping-time edges reproduce pandas' ``resample`` (default
 ``origin="start_day"``, ``closed="left"``) in integer nanoseconds, and
 :func:`parse_time_bin_to_value_unit` reproduces ``pd.Timedelta``'s
@@ -17,6 +18,8 @@ from fractions import Fraction
 
 import numpy as np
 
+from ..device import resolve_device
+from ..ops import binning
 from ..utils.compute import _lin2log
 from ..utils.geodesy import pairwise_distance_nmi
 from ..xrlite import Dataset
@@ -25,9 +28,12 @@ __all__ = [
     "POSITION_VARIABLES",
     "X_BIN_MAP",
     "_binned_mean_to_db",
+    "_interval_edges",
     "_parse_x_bin",
     "_setup_and_validate",
     "assign_actual_range",
+    "compute_raw_MVBS",
+    "compute_raw_NASC",
     "get_distance_from_latlon",
     "get_reduced_positions",
     "parse_time_bin_to_value_unit",
@@ -223,3 +229,129 @@ def _binned_mean_to_db(sums, counts, nan_counts, fill_value):
         if fill_value is not None and not np.isnan(fill_value):
             linear = np.where((counts == 0) & (nan_counts == 0), fill_value, linear)
         return _lin2log(linear)
+
+
+def _interval_edges(interval):
+    """(edges, closed) from an interval index or a 1-D edge array.
+
+    An interval index (anything with ``.left``, ``.right`` and ``.closed``,
+    such as pandas' ``IntervalIndex``; read by duck typing, so pandas is not
+    needed) carries its own closed side; plain edge arrays default to the
+    reference's 'left'.
+    """
+    if all(hasattr(interval, a) for a in ("left", "right", "closed")):
+        closed = interval.closed if interval.closed in ("left", "right") else "left"
+        return np.append(np.asarray(interval.left), np.asarray(interval.right)[-1]), closed
+    return np.asarray(interval), "left"
+
+
+def compute_raw_MVBS(
+    ds_Sv: Dataset,
+    range_interval,
+    ping_interval,
+    range_var: str = "echo_range",
+    method="map-reduce",
+    reindex=False,
+    skipna=True,
+    fill_value=np.nan,
+    device="cuda",
+    **kwargs,
+):
+    """Raw (unformatted) MVBS on caller-provided bins, in dB.
+
+    Reference commongrid/utils.py:17-94: output dims are ``(dim0,
+    ping_time_bins, {range_var}_bins)`` with the bins' left edges as coords.
+    Takes interval indexes or 1-D edge arrays; the bin sums run on
+    ``device`` ("cuda" by default, "cpu" for the plain PyTorch path).
+    """
+    dev = resolve_device(device)
+    range_edges, closed_r = _interval_edges(range_interval)
+    range_edges = range_edges.astype("f8")
+    ping_edges_raw, closed_p = _interval_edges(ping_interval)
+    ping_edges = np.asarray(ping_edges_raw, dtype="datetime64[ns]")
+    ping_time = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]")
+    sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
+    er = np.asarray(ds_Sv[range_var].values, dtype="f8")
+    if er.shape != sv.shape:
+        er = np.broadcast_to(er, sv.shape)
+    x_bounds = binning.x_bounds_np(ping_time.astype("i8"), ping_edges.astype("i8"), closed_p)
+    sums, counts, nan_w = binning.windowed_partials_np(
+        sv, er, range_edges, x_bounds, skipna=bool(skipna), closed=closed_r, device=dev,
+    )
+    mvbs = _binned_mean_to_db(sums, counts, nan_w, fill_value)
+    dim0 = ds_Sv["Sv"].dims[0]
+    out = Dataset(
+        coords={
+            dim0: ds_Sv.coords[dim0],
+            "ping_time_bins": ping_edges[:-1],
+            f"{range_var}_bins": range_edges[:-1],
+        }
+    )
+    out["Sv"] = ((dim0, "ping_time_bins", f"{range_var}_bins"), mvbs)
+    return out
+
+
+def compute_raw_NASC(
+    ds_Sv: Dataset,
+    range_interval,
+    dist_interval,
+    method="map-reduce",
+    skipna=True,
+    device="cuda",
+    **kwargs,
+):
+    """Raw (unformatted) NASC on caller-provided bins.
+
+    Reference commongrid/utils.py:97-207.  ``ds_Sv`` carries ``depth`` and
+    a ``distance_nmi`` variable along the ping dim (compute_NASC derives it
+    from lat/lon); the output holds ``sv`` (= NASC) and the mean
+    ``ping_time`` of each distance bin.  The bin sums run on ``device``.
+    """
+    dev = resolve_device(device)
+    depth_edges, closed_r = _interval_edges(range_interval)
+    depth_edges = depth_edges.astype("f8")
+    dist_edges, closed_x = _interval_edges(dist_interval)
+    dist_edges = dist_edges.astype("f8")
+    dist = np.asarray(ds_Sv["distance_nmi"].values, dtype="f8")
+    sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
+    depth = np.asarray(ds_Sv["depth"].values, dtype="f8")
+    if depth.shape != sv.shape:
+        depth = np.broadcast_to(depth, sv.shape)
+    n_x = len(dist_edges) - 1
+    x_bounds = binning.x_bounds_np(dist, dist_edges, closed_x)
+    x_idx = binning.bin_index_np(dist, dist_edges, closed_x)
+    sums, counts, nan_w = binning.windowed_partials_np(
+        sv, depth, depth_edges, x_bounds, skipna=bool(skipna), closed=closed_r, device=dev,
+    )
+    with np.errstate(invalid="ignore", divide="ignore"):
+        good = (counts > 0) & (nan_w == 0)
+        sv_mean = np.where(good, sums / np.where(counts > 0, counts, 1), np.nan)
+    ddepth = np.diff(depth, axis=2).astype("f4")
+    h_num = binning.windowed_sum_raw_np(
+        ddepth, depth[:, :, :-1], depth_edges, x_bounds, closed=closed_r, device=dev,
+    )
+    denom = np.bincount(x_idx[x_idx >= 0], minlength=n_x).astype("f8")
+    with np.errstate(invalid="ignore", divide="ignore"):
+        h_mean = h_num / np.where(denom > 0, denom, np.nan)[None, :, None]
+    nasc = sv_mean * h_mean * 4 * np.pi * 1852**2
+    pt_ns = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]").astype("i8")
+    in_bin = x_idx >= 0
+    pt_rel = (pt_ns - pt_ns[0]).astype("f8")
+    pt_sums = np.bincount(x_idx[in_bin], weights=pt_rel[in_bin], minlength=n_x)
+    pt_cnts = np.bincount(x_idx[in_bin], minlength=n_x)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        pt_mean = pt_ns[0] + pt_sums / np.where(pt_cnts > 0, pt_cnts, np.nan)
+    pt_out = np.where(
+        pt_cnts > 0, pt_mean, float(np.datetime64("NaT", "ns").astype("i8"))
+    ).astype("i8").astype("datetime64[ns]")
+    dim0 = ds_Sv["Sv"].dims[0]
+    out = Dataset(
+        coords={
+            dim0: ds_Sv.coords[dim0],
+            "distance_nmi_bins": dist_edges[:-1],
+            "depth_bins": depth_edges[:-1],
+        }
+    )
+    out["sv"] = ((dim0, "distance_nmi_bins", "depth_bins"), nasc)
+    out["ping_time"] = (("distance_nmi_bins",), pt_out)
+    return out

@@ -13,8 +13,12 @@ bin is a contiguous run and no scatter is needed.
 * Device, plain torch: :func:`banded_x_reduce` (ping windows),
   :func:`_uniform_bin_matmul` (range bins on a ping-invariant grid),
   :func:`row_bin_bounds` + :func:`_prefix_gather_diff` (per-row bins), and
-  the window partials built from them.  Every float32 matmul runs with TF32
-  off (``device.py``), so a bin sums its own samples at full float32.
+  the window partials built from them, with the survey streamers'
+  variants: one [C, R] range row for every ping (``*_grid``, ``*_row_sum``)
+  and, for a grid that varies by ping, per-bin segment sums over runs
+  found from the host's encoded membership (``*_rows``).  Every float32
+  matmul runs with TF32 off (``device.py``), so a bin sums its own samples
+  at full float32.
 """
 
 from __future__ import annotations
@@ -30,7 +34,11 @@ __all__ = [
     "banded_x_reduce",
     "bin_index_np",
     "binned_window_partials",
+    "binned_window_partials_grid",
+    "binned_window_partials_rows",
+    "binned_window_row_sum",
     "binned_window_sum_raw",
+    "binned_window_sum_raw_rows",
     "er_is_uniform",
     "exact_bin_encode_np",
     "row_bin_bounds",
@@ -334,4 +342,99 @@ def binned_window_sum_raw(values, er, r_edges, x_rel, n_x_window: int, closed: s
     else:
         rb = row_bin_bounds(er, r_edges, closed)
         s1 = _prefix_gather_diff(torch.where(ok, values, 0.0), rb, 2)
+    return banded_x_reduce(s1, _x_rel_bounds(x_rel, n_x_window))
+
+
+def binned_window_partials_grid(sv_db, er_grid, r_edges, x_rel, n_x_window: int,
+                                skipna: bool = True, closed: str = "left"):
+    """:func:`binned_window_partials` on one range row shared by every ping.
+
+    er_grid [C, R] float32 (NaN = no bin) replaces the [C, P, R] range
+    operand; membership and results equal ``binned_window_partials(...,
+    uniform_er=True)`` on the row broadcast over the pings.  Returns
+    (sums, counts, nan_counts) float32 [C, n_x_window, n_r].
+    """
+    lin = torch.pow(10.0, sv_db / 10.0)
+    isnan_sv = torch.isnan(sv_db)
+    in_grid = ~torch.isnan(er_grid)[:, None, :]
+    ok = ~isnan_sv & in_grid
+    s1 = _uniform_bin_matmul(torch.where(ok, lin, 0.0), er_grid, r_edges, closed)
+    n1 = _uniform_bin_matmul(ok.to(torch.float32), er_grid, r_edges, closed)
+    nan1 = torch.zeros_like(n1) if skipna else _uniform_bin_matmul(
+        (isnan_sv & in_grid).to(torch.float32), er_grid, r_edges, closed)
+    n_r = s1.shape[2]
+    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2), _x_rel_bounds(x_rel, n_x_window))
+    return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
+
+
+def binned_window_row_sum(values_row, er_row, r_edges, x_rel, n_x_window: int,
+                          closed: str = "left"):
+    """Raw bin sums of one row shared by every ping, times each window bin's
+    ping count: [C, n_x_window, n_r].
+
+    values_row / er_row [C, R] float32 (the NASC height integrand on a
+    ping-invariant depth grid).  Pings are counted from ``x_rel`` through
+    the window's ping bounds, so ids outside [0, n_x_window) count nowhere.
+    """
+    ok = ~torch.isnan(values_row) & ~torch.isnan(er_row)
+    s_row = _uniform_bin_matmul(torch.where(ok, values_row, 0.0)[:, None, :], er_row,
+                                r_edges, closed)[:, 0, :]
+    ping_counts = torch.diff(_x_rel_bounds(x_rel, n_x_window)).to(torch.float32)
+    return s_row[:, None, :] * ping_counts[None, :, None]
+
+
+def _encoded_row_lengths(er_enc, n_r: int):
+    """Per-row run lengths int64 [C, P, n_r+2] of the bins in encoded membership.
+
+    er_enc [C, P, R]: ``idx + 0.5`` of a sample's bin, NaN where it joins no
+    bin (:func:`exact_bin_encode_np`), bin ids non-decreasing along R where
+    set.  A sample outside every bin takes the id of the last binned sample
+    before it (-1 before any), so the ids stay sorted whatever the NaNs'
+    places (below the first edge, above the last, holes); callers zero the
+    values of those samples.  Runs: the head before bin 0, the n_r bins,
+    the tail after the last.
+    """
+    key = torch.where(torch.isnan(er_enc), -1.0, er_enc).cummax(dim=2).values
+    edges = torch.arange(n_r + 1, dtype=key.dtype, device=key.device)
+    bounds = torch.searchsorted(key.contiguous(),
+                                edges.expand(*key.shape[:2], n_r + 1).contiguous())
+    ends = torch.full_like(bounds[:, :, :1], key.shape[2])
+    return torch.diff(bounds, dim=2, prepend=torch.zeros_like(ends), append=ends)
+
+
+def _run_sums(values, lengths):
+    """Sum of each bin's run of ``values`` [C, P, R], each on its own:
+    [C, P, n_r] (the head and tail runs dropped)."""
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=2)[:, :, 1:-1]
+
+
+def binned_window_partials_rows(sv_db, er_enc, n_r: int, x_rel, n_x_window: int,
+                                skipna: bool = True):
+    """:func:`binned_window_partials` for a range grid that varies by ping.
+
+    er_enc [C, P, R] float32 encoded membership (:func:`exact_bin_encode_np`).
+    Each row's bins are contiguous runs, each summed on its own (a segment
+    reduction, no prefix sums), so a quiet bin after loud samples keeps its
+    float32 precision, and samples outside every bin (NaN anywhere in the
+    row) join none.  Returns (sums, counts, nan_counts) float32
+    [C, n_x_window, n_r].
+    """
+    lengths = _encoded_row_lengths(er_enc, n_r)
+    in_bin = ~torch.isnan(er_enc)
+    isnan_sv = torch.isnan(sv_db)
+    ok = in_bin & ~isnan_sv
+    lin = torch.pow(10.0, sv_db / 10.0)
+    s1 = _run_sums(torch.where(ok, lin, 0.0), lengths)
+    n1 = _run_sums(ok.to(torch.float32), lengths)
+    nan1 = torch.zeros_like(n1) if skipna else _run_sums(
+        (isnan_sv & in_bin).to(torch.float32), lengths)
+    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2), _x_rel_bounds(x_rel, n_x_window))
+    return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
+
+
+def binned_window_sum_raw_rows(values, er_enc, n_r: int, x_rel, n_x_window: int):
+    """NaN-skipping raw sums of ``values`` on encoded per-ping membership,
+    as :func:`binned_window_partials_rows` bins them: [C, n_x_window, n_r]."""
+    ok = ~torch.isnan(values) & ~torch.isnan(er_enc)
+    s1 = _run_sums(torch.where(ok, values, 0.0), _encoded_row_lengths(er_enc, n_r))
     return banded_x_reduce(s1, _x_rel_bounds(x_rel, n_x_window))

@@ -3,9 +3,11 @@
 A subprocess refuses ``jax``, ``jaxlib``, ``pandas`` and ``echopype_tpu``
 from a ``sys.meta_path`` finder, imports echopype_torch and runs the
 raw->MVBS survey, ``open_raw`` -> ``compute_Sv`` -> ``compute_MVBS`` /
-``compute_MVBS_index_binning`` and the fused survey step on the CPU; none of
-the four may be loaded afterwards.  An AST scan holds the package's sources
-and ``chip_smoke.py`` to the same rule, including imports inside functions.
+``compute_MVBS_index_binning``, the fused survey step, and
+``consolidate.add_location`` / ``add_depth`` -> ``run_survey_mvbs`` /
+``run_survey_nasc`` on the CPU; none of the four may be loaded afterwards.
+An AST scan holds the package's sources and ``chip_smoke.py`` to the same
+rule, including imports inside functions.
 """
 
 import ast
@@ -47,7 +49,8 @@ _SCRIPT = textwrap.dedent(
     write_ek60_raw(path, n_pings=30, n_samples=200, with_angle=False, jitter_raw0=True)
     mvbs = et.run_survey_mvbs_from_raw([path], range_bin="5m", ping_time_bin="10s",
                                        chunk_pings=16, device="cpu")
-    sv = et.calibrate.compute_Sv(et.open_raw(path, sonar_model="EK60"), device="cpu")
+    ed = et.open_raw(path, sonar_model="EK60")
+    sv = et.calibrate.compute_Sv(ed, device="cpu")
     assert np.isfinite(mvbs["Sv"].values).any() and sv["Sv"].values.shape == (2, 30, 200)
     grid = et.compute_MVBS(sv, range_bin="5m", ping_time_bin="10s", device="cpu")
     assert "ping_time: mean (interval: 10 second" in grid["Sv"].attrs["cell_methods"]
@@ -60,6 +63,12 @@ _SCRIPT = textwrap.dedent(
     sv_t, mvbs_t = et.survey_pipeline_step(None, 4, 3, device="cpu")(
         power, cp, 2 * cp, cp * 0.05, cp - 30, np.arange(16) // 4, np.arange(0, 12.0, 3.0))
     assert sv_t.shape == (2, 16, 64) and torch.isfinite(mvbs_t).all()
+    sv = et.consolidate.add_depth(et.consolidate.add_location(sv, ed), echodata=ed,
+                                  use_platform_vertical_offsets=True)
+    survey = et.run_survey_mvbs([sv], range_bin="5m", ping_time_bin="10s", device="cpu")
+    nasc = et.run_survey_nasc([sv], range_bin="5m", dist_bin="1nmi", device="cpu")
+    assert survey.attrs["routes"] == nasc.attrs["routes"] == ["per_ping"]
+    assert np.isfinite(survey["Sv"].values).any() and np.isfinite(nasc["NASC"].values).any()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("LOADED", loaded)
     """

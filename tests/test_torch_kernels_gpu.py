@@ -23,12 +23,18 @@ Counts exact, sums within rtol 1e-5 (float32 sums in another order), Sv
 within rtol / atol 1e-5 with identical NaN masks, reruns bit-identical, one
 launch counted per call; K1 / K2 give the same partials under another slab
 split of the same windows.
+
+The Sv-store streamers' plain-torch binning (``binned_window_partials_grid``,
+``binned_window_row_sum``, and the per-ping ``*_rows`` segment sums) runs
+on the card against ``device="cpu"`` at a full-width chunk, 5 x 5,000 x
+4,000 float32: counts exact, sums within rtol 1e-5.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from echopype_torch.ops import binning as tb
 from echopype_torch.ops import sv_bin_partials as sbp
 from echopype_torch.ops import window_partials as wp
 from echopype_torch.parallel.pipeline import kernel_inputs_from_numpy
@@ -290,3 +296,60 @@ def test_fused_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="shape"):
         sbp.sv_bin_partials(**{**ops, "offset": ops["offset"][:, :-1].contiguous()})
     assert sbp.LAUNCHES == {"sv_bin_partials": 0, "mvbs_partials": 0}
+
+
+def _sv_chunk(seed, C=5, P=5000, R=4000, n_x=251, bin_m=20.0, vary=False):
+    """A full-width Sv chunk with encoded range membership (the streamers'
+    operands): ragged and interior NaNs, pings parked past the window."""
+    rng = np.random.default_rng(seed)
+    sv = rng.normal(-80.0, 15.0, (C, P, R)).astype("f4")
+    sv[rng.random((C, P, R), dtype=np.float32) < 1e-3] = np.nan
+    er = (np.arange(R) * 0.18944)[None, None] - 2.0
+    er = er * rng.uniform(0.97, 1.03, (C, P, 1)) if vary else np.broadcast_to(er, (1, 1, R))
+    edges = np.arange(0, R * 0.2 + bin_m, bin_m)
+    x_rel = np.sort(rng.integers(0, n_x, P)).astype("i4")
+    x_rel[-40:] = n_x
+    return sv, er, edges, x_rel, n_x
+
+
+def _to(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        g, w = g.cpu().numpy(), w.numpy()
+        np.testing.assert_allclose(g, w, rtol=1e-5, atol=1e-30)
+
+
+@pytest.mark.parametrize("skipna", [True, False])
+def test_grid_binning_card_equals_cpu(cuda, skipna):
+    sv, er, edges, x_rel, n_x = _sv_chunk(11)
+    row = np.broadcast_to(tb.exact_bin_encode_np(er, edges)[0][0], (5, er.shape[2]))
+    enc_edges = np.arange(len(edges), dtype="f4")
+    args = (sv, row, enc_edges, x_rel)
+    got = tb.binned_window_partials_grid(*_to(cuda, *args), n_x, skipna=skipna)
+    want = tb.binned_window_partials_grid(*_to("cpu", *args), n_x, skipna=skipna)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    _close(got, want)
+    ddep = np.full(row.shape, 0.18944, "f4")
+    h_args = (ddep[:, :-1], row[:, :-1], enc_edges, x_rel)
+    _close([tb.binned_window_row_sum(*_to(cuda, *h_args), n_x)],
+           [tb.binned_window_row_sum(*_to("cpu", *h_args), n_x)])
+
+
+def test_rows_binning_card_equals_cpu(cuda):
+    sv, er, edges, x_rel, n_x = _sv_chunk(12, P=2000, vary=True)
+    enc = tb.exact_bin_encode_np(er, edges)[0]
+    n_r = len(edges) - 1
+    got = tb.binned_window_partials_rows(*_to(cuda, sv, enc), n_r, *_to(cuda, x_rel), n_x,
+                                         skipna=False)
+    want = tb.binned_window_partials_rows(*_to("cpu", sv, enc), n_r, *_to("cpu", x_rel), n_x,
+                                          skipna=False)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    _close(got, want)
+    ddep = np.diff(er, axis=2).astype("f4")
+    _close([tb.binned_window_sum_raw_rows(*_to(cuda, ddep, enc[:, :, :-1]), n_r,
+                                          *_to(cuda, x_rel), n_x)],
+           [tb.binned_window_sum_raw_rows(*_to("cpu", ddep, enc[:, :, :-1]), n_r,
+                                          *_to("cpu", x_rel), n_x)])
