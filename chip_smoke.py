@@ -55,7 +55,11 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    times, finite share above 0.9; A and B take the grid route and C (sound
    speed by ping) the per-ping route; no CUDA kernel launches; and each
    streamer on A's store alone equals the Sv-grid phase's compute_MVBS /
-   compute_NASC on A (1e-4 dB, rtol 1e-5); stage seconds of every run;
+   compute_NASC on A (1e-4 dB, rtol 1e-5); ``run_survey_mvbs`` on C's store
+   alone (per-ping route, float32) and ``compute_MVBS`` on C (its per-ping
+   route sums in float64) on the card each equal a host float64 numpy
+   bincount of C's Sv (1e-4 dB, identical NaN masks); stage seconds of every
+   run;
 10. print the kernel table as one JSON line (launches on the main path,
    error, kernel / plain twin ms, bound ms and what sets it; no single
    PyTorch call computes any of the four functions, so ``library_ms`` is
@@ -418,6 +422,33 @@ def _nasc_rel(a, b):
     return float(np.max(np.abs(a[ok] - b[ok]) / np.abs(b[ok]))), same_nan
 
 
+def mvbs_f64(ds, mvbs):
+    """MVBS of one Sv dataset on ``mvbs``'s grid by host float64 numpy
+    bincounts, apart from the port's binning: bins closed left, each
+    coordinate its bin's left edge, the same 20 m x 20 s widths."""
+    r_left = np.asarray(mvbs.coords["echo_range"].values, dtype="f8")
+    t_left = np.asarray(mvbs.coords["ping_time"].values, dtype="datetime64[ns]").astype("i8")
+    r_edges = np.append(r_left, r_left[-1] + RANGE_BIN_M)
+    t_edges = np.append(t_left, t_left[-1] + PING_BIN_S * 1_000_000_000)
+    n_x, n_r = len(t_left), len(r_left)
+    pt = np.asarray(ds.coords["ping_time"].values, dtype="datetime64[ns]").astype("i8")
+    xi = np.searchsorted(t_edges, pt, side="right") - 1
+    x_ok = ((xi >= 0) & (xi < n_x))[:, None]
+    sv_all, er_all = ds["Sv"].values, ds["echo_range"].values
+    out = np.full((sv_all.shape[0], n_x, n_r), np.nan)
+    for c in range(sv_all.shape[0]):
+        sv, er = np.asarray(sv_all[c], dtype="f8"), np.asarray(er_all[c], dtype="f8")
+        ri = np.searchsorted(r_edges, er, side="right") - 1
+        ok = x_ok & (ri >= 0) & (ri < n_r) & ~np.isnan(er) & ~np.isnan(sv)
+        lab = (xi[:, None] * n_r + ri)[ok]
+        sums = np.bincount(lab, weights=10.0 ** (sv[ok] / 10.0), minlength=n_x * n_r)
+        counts = np.bincount(lab, minlength=n_x * n_r)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out[c] = np.where(counts > 0, 10 * np.log10(sums / np.maximum(counts, 1)),
+                              np.nan).reshape(n_x, n_r)
+    return out
+
+
 def sv_survey_phase(files, grid_a):
     """Sv stores -> survey-wide MVBS and NASC (``run_survey_mvbs`` /
     ``run_survey_nasc``) on the card and on the CPU.
@@ -431,6 +462,7 @@ def sv_survey_phase(files, grid_a):
     import echopype_torch as et
     from echopype_torch.ops import sv_bin_partials as sbp
     from echopype_torch.ops import window_partials as wp
+    from echopype_torch.utils.io import open_source
     from echopype_torch.utils.profiling import StageTimer
 
     ds_a, mvbs_a, nasc_a = grid_a
@@ -460,14 +492,27 @@ def sv_survey_phase(files, grid_a):
     for name, fn, srcs, kw in (("mvbs", et.run_survey_mvbs, stores, mvbs_kw),
                                ("nasc", et.run_survey_nasc, stores, nasc_kw),
                                ("mvbs_A", et.run_survey_mvbs, stores[:1], mvbs_kw),
-                               ("nasc_A", et.run_survey_nasc, stores[:1], nasc_kw)):
+                               ("nasc_A", et.run_survey_nasc, stores[:1], nasc_kw),
+                               ("mvbs_C", et.run_survey_mvbs, stores[2:], mvbs_kw)):
         for device in ("cuda", "cpu") if name in ("mvbs", "nasc") else ("cuda",):
             t0 = time.perf_counter()
             out = fn(srcs, timer=StageTimer(), device=device, **kw)
             torch.cuda.synchronize()
             walls[f"{name}_{device}"] = round(time.perf_counter() - t0, 3)
             runs[f"{name}_{device}"] = out
+    t0 = time.perf_counter()
+    ds_c = open_source(stores[2], "dataset")
+    mvbs_c = et.compute_MVBS(ds_c, range_bin=mvbs_kw["range_bin"],
+                             ping_time_bin=mvbs_kw["ping_time_bin"])
+    torch.cuda.synchronize()
+    walls["compute_MVBS_C_cuda"] = round(time.perf_counter() - t0, 3)
     launches = {**sbp.LAUNCHES, **wp.LAUNCHES}
+    t0 = time.perf_counter()
+    want_c = mvbs_f64(ds_c, runs["mvbs_C_cuda"])
+    walls["C_f64_oracle"] = round(time.perf_counter() - t0, 3)
+    del ds_c
+    c_db, c_nan = _max_db(runs["mvbs_C_cuda"]["Sv"].values, want_c)
+    c_f64_db, c_f64_nan = _max_db(mvbs_c["Sv"].values, want_c)
 
     g, w = (np.asarray(runs[f"mvbs_{d}"]["Sv"].values) for d in ("cuda", "cpu"))
     mvbs_db, mvbs_nan = _max_db(g, w)
@@ -483,7 +528,8 @@ def sv_survey_phase(files, grid_a):
         routes=json.dumps(routes), launches=json.dumps(launches),
         mvbs_cuda_vs_cpu_dB=mvbs_db, nasc_cuda_vs_cpu_rel=nasc_rel,
         mvbs_finite_share=round(finite, 4), nasc_finite_share=round(nasc_finite, 4),
-        A_vs_compute_MVBS_dB=a_db, A_vs_compute_NASC_rel=a_rel)
+        A_vs_compute_MVBS_dB=a_db, A_vs_compute_NASC_rel=a_rel,
+        C_vs_f64_oracle_dB=c_db, C_compute_MVBS_vs_f64_oracle_dB=c_f64_db)
     for k, v in runs.items():
         print(f"[sv_survey_stages] {k} {v.attrs['stage_timing']}", flush=True)
     three = ["grid", "grid", "per_ping"]
@@ -504,6 +550,10 @@ def sv_survey_phase(files, grid_a):
             runs["mvbs_A_cuda"], mvbs_a, ("channel", "ping_time", "echo_range"))),
         "A vs compute_NASC": (a_nasc_nan and a_rel <= NASC_RTOL and _same_coords(
             runs["nasc_A_cuda"], nasc_a, ("channel", "distance", "depth"))),
+        "C vs f64 oracle": (c_nan and c_db <= MVBS_ATOL_DB
+                            and routes["mvbs_C_cuda"] == ["per_ping"]),
+        "C compute_MVBS vs f64 oracle": (c_f64_nan and c_f64_db <= MVBS_ATOL_DB and _same_coords(
+            runs["mvbs_C_cuda"], mvbs_c, ("channel", "ping_time", "echo_range"))),
         "no kernel launches": not any(launches.values()),
         "device attrs": all(v.attrs["device"] == ("cpu" if k.endswith("cpu") else
                                                   torch.cuda.get_device_name(0))

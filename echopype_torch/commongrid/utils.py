@@ -18,7 +18,7 @@ from fractions import Fraction
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import device_name, resolve_device
 from ..ops import binning
 from ..utils.compute import _lin2log
 from ..utils.geodesy import pairwise_distance_nmi
@@ -262,7 +262,8 @@ def compute_raw_MVBS(
     Reference commongrid/utils.py:17-94: output dims are ``(dim0,
     ping_time_bins, {range_var}_bins)`` with the bins' left edges as coords.
     Takes interval indexes or 1-D edge arrays; the bin sums run on
-    ``device`` ("cuda" by default, "cpu" for the plain PyTorch path).
+    ``device`` ("cuda" by default, "cpu" for the plain PyTorch path), which
+    ``attrs["device"]`` names.
     """
     dev = resolve_device(device)
     range_edges, closed_r = _interval_edges(range_interval)
@@ -288,6 +289,7 @@ def compute_raw_MVBS(
         }
     )
     out["Sv"] = ((dim0, "ping_time_bins", f"{range_var}_bins"), mvbs)
+    out.attrs["device"] = device_name(dev)
     return out
 
 
@@ -305,7 +307,8 @@ def compute_raw_NASC(
     Reference commongrid/utils.py:97-207.  ``ds_Sv`` carries ``depth`` and
     a ``distance_nmi`` variable along the ping dim (compute_NASC derives it
     from lat/lon); the output holds ``sv`` (= NASC) and the mean
-    ``ping_time`` of each distance bin.  The bin sums run on ``device``.
+    ``ping_time`` of each distance bin.  The bin sums run on ``device``,
+    which ``attrs["device"]`` names.
     """
     dev = resolve_device(device)
     depth_edges, closed_r = _interval_edges(range_interval)
@@ -354,4 +357,5 @@ def compute_raw_NASC(
     )
     out["sv"] = ((dim0, "distance_nmi_bins", "depth_bins"), nasc)
     out["ping_time"] = (("distance_nmi_bins",), pt_out)
+    out.attrs["device"] = device_name(dev)
     return out

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["device_name", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -31,3 +31,9 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+def device_name(dev: torch.device) -> str:
+    """The card's name for a CUDA device, else "cpu" (an output's
+    ``attrs["device"]``)."""
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -1,24 +1,21 @@
 """Binned echo-integration (MVBS / NASC): host membership, device bin sums.
 
 Counterpart of ``echopype_tpu/ops/binning.py`` (which imports jax, so its
-host helpers are copied here, not imported).  Both grouping axes are
-monotone (ping time sorted, range monotone along the sample axis), so every
-bin is a contiguous run and no scatter is needed.
+host helpers are copied here, not imported).  The ping axis is sorted, so
+every ping bin is a contiguous run and reduces by a 0/1 matmul.
 
 * Host, numpy: bin membership in float64 (:func:`exact_bin_encode_np`, the
-  reference's elementwise digitize), the exact float64 accumulation for
-  ping-varying range grids (:func:`_host_exact_partials_np`), and the ping
-  chunk loop :func:`_windowed_accumulate`, whose window partials add up
-  in float64 on the host.
-* Device, plain torch: :func:`banded_x_reduce` (ping windows),
-  :func:`_uniform_bin_matmul` (range bins on a ping-invariant grid),
-  :func:`row_bin_bounds` + :func:`_prefix_gather_diff` (per-row bins), and
-  the window partials built from them, with the survey streamers'
-  variants: one [C, R] range row for every ping (``*_grid``, ``*_row_sum``)
-  and, for a grid that varies by ping, per-bin segment sums over runs
-  found from the host's encoded membership (``*_rows``).  Every float32
-  matmul runs with TF32 off (``device.py``), so a bin sums its own samples
-  at full float32.
+  reference's elementwise digitize, shipped as ``idx + 0.5`` against
+  integer edges so the device compares exact values), and the ping chunk
+  loop :func:`_windowed_accumulate`, whose window partials add up in
+  float64 on the host.
+* Device, plain torch: :func:`banded_x_reduce` (ping windows) and the range
+  bins, by one of two rules: on a ping-invariant grid a per-channel 0/1
+  matmul against the grid row (:func:`_uniform_bin_matmul`; the survey
+  streamers pass the row itself, ``*_grid``, ``*_row_sum``), on a grid that
+  varies by ping a scatter-add of each sample into its own bin
+  (:func:`_sample_bin_sums`).  Every bin sums only its own samples, and
+  every float32 matmul runs with TF32 off (``device.py``).
 """
 
 from __future__ import annotations
@@ -35,13 +32,10 @@ __all__ = [
     "bin_index_np",
     "binned_window_partials",
     "binned_window_partials_grid",
-    "binned_window_partials_rows",
     "binned_window_row_sum",
     "binned_window_sum_raw",
-    "binned_window_sum_raw_rows",
     "er_is_uniform",
     "exact_bin_encode_np",
-    "row_bin_bounds",
     "windowed_partials_np",
     "windowed_sum_raw_np",
     "x_bounds_np",
@@ -75,8 +69,9 @@ def er_is_uniform(er) -> bool:
     """True when every ping of each channel shares one finite range grid.
 
     The uniform case (ping-invariant sample interval, the instrument norm)
-    takes the cancellation-free banded-matmul range reduction; a ping-varying
-    grid takes the exact float64 host accumulation.
+    takes the 0/1 matmul against the grid row; a ping-varying grid the
+    per-sample scatter-add.  A NaN where the row is finite (a short ping)
+    still counts as uniform: that sample joins no bin.
     """
     er = np.asarray(er)
     if er.ndim < 3:
@@ -129,7 +124,7 @@ def exact_bin_encode_np(er, r_edges, closed="left"):
     NaN and out-of-bin samples encode as NaN (no bin).
 
     Returns (er_enc f4, edges_enc f4, idx i8, ok bool); idx/ok are the raw
-    elementwise membership for exact host-side accumulation.
+    elementwise membership.
     """
     er64 = np.asarray(er, dtype="f8")
     edges64 = np.asarray(r_edges, dtype="f8")
@@ -141,51 +136,22 @@ def exact_bin_encode_np(er, r_edges, closed="left"):
     return er_enc, np.arange(n_r + 1, dtype="f4"), idx, ok
 
 
-def _x_index_from_bounds_np(x_bounds, P):
-    """Per-ping x-bin index from boundary positions; -1 = outside all bins."""
-    b = np.clip(np.asarray(x_bounds, dtype="i8"), 0, P)
-    xi = np.searchsorted(b, np.arange(P), side="right") - 1
-    xi[(xi < 0) | (xi >= len(b) - 1)] = -1
-    return xi
-
-
-def _host_exact_partials_np(sv, ridx, ok_r, n_r, x_bounds, skipna, lin_domain, chunk_pings=8192):
-    """Exact float64 host bincount accumulation for ping-varying range grids.
-
-    A per-row prefix-sum reduction loses quiet bins to float32 cancellation
-    when the range grid varies by ping, so the public entries take this
-    exact path, as the reference's float64 flox accumulation does.  Works
-    over ping chunks so the float64 temporaries stay bounded.
-    """
-    sv = np.asarray(sv)
-    C, P, R = sv.shape
-    n_x = len(x_bounds) - 1
-    xi = _x_index_from_bounds_np(x_bounds, P)
-    sums = np.zeros((C, n_x, n_r), dtype="f8")
-    counts = np.zeros_like(sums)
-    nans = np.zeros_like(sums)
-    for lo in range(0, P, chunk_pings):
-        hi = min(lo + chunk_pings, P)
-        svc = np.asarray(sv[:, lo:hi], dtype="f8")
-        okr_c = ok_r[:, lo:hi]
-        valid = okr_c & (xi[lo:hi] >= 0)[None, :, None]
-        lab = xi[None, lo:hi, None] * n_r + np.where(okr_c, ridx[:, lo:hi], 0)
-        vals = np.power(10.0, svc / 10.0) if lin_domain else svc
-        nan_sv = np.isnan(svc)
-        okv = valid & ~nan_sv
-        for c in range(C):
-            sel = okv[c]
-            lc = lab[c][sel]
-            sums[c] += np.bincount(lc, weights=vals[c][sel], minlength=n_x * n_r).reshape(n_x, n_r)
-            counts[c] += np.bincount(lc, minlength=n_x * n_r).reshape(n_x, n_r)
-            if not skipna:
-                ln = lab[c][valid[c] & nan_sv[c]]
-                nans[c] += np.bincount(ln, minlength=n_x * n_r).reshape(n_x, n_r)
-    return sums, counts, nans
-
-
 def _to_dev(a, dev, dtype="f4"):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev)
+
+
+def _encoded_chunks(er, r_edges, closed, device):
+    """The shared set-up of the ``windowed_*_np`` entries: (device, encoded
+    er, encoded edges on the device, uniform_er, value dtype).
+
+    A ping-varying grid sums in float64 (its bins were summed in float64 on
+    the host before the device route took them, as the reference's flox
+    accumulation does); a ping-invariant grid in float32, the banded matmul.
+    """
+    dev = resolve_device(device)
+    er_enc, edges = exact_bin_encode_np(er, r_edges, closed)[:2]
+    uniform = er_is_uniform(er_enc)
+    return dev, er_enc, _to_dev(edges, dev), uniform, "f4" if uniform else "f8"
 
 
 def windowed_partials_np(sv, er, r_edges, x_bounds, skipna=True, closed="left",
@@ -193,25 +159,19 @@ def windowed_partials_np(sv, er, r_edges, x_bounds, skipna=True, closed="left",
     """(sums, counts, nan_counts) float64 [C, n_x, n_r] of linear Sv per bin.
 
     Membership resolves on the host in float64 (:func:`exact_bin_encode_np`;
-    pass ``er`` and ``r_edges`` at full precision).  A ping-invariant grid
-    runs :func:`binned_window_partials` on ``device`` chunk by chunk, each
-    bin accumulating independently; a ping-varying grid takes the exact
-    float64 host path (:func:`_host_exact_partials_np`).
+    pass ``er`` and ``r_edges`` at full precision); :func:`binned_window_partials`
+    runs on ``device`` chunk by chunk, each bin accumulating independently,
+    and the chunks' partials add up in float64 on the host.
     """
-    dev = resolve_device(device)
-    er, r_edges, ridx, ok_r = exact_bin_encode_np(er, r_edges, closed)
-    if not er_is_uniform(er):
-        return _host_exact_partials_np(sv, ridx, ok_r, len(r_edges) - 1, x_bounds, skipna,
-                                       lin_domain=True, chunk_pings=chunk_pings)
-    edges_t = _to_dev(r_edges, dev)
+    dev, er, edges_t, uniform, dtype = _encoded_chunks(er, r_edges, closed, device)
 
     def kernel(lo, hi, x_rel, window):
         return binned_window_partials(
-            _to_dev(sv[:, lo:hi], dev), _to_dev(er[:, lo:hi], dev), edges_t,
-            _to_dev(x_rel, dev, "i4"), window, skipna=skipna, closed=closed, uniform_er=True,
+            _to_dev(sv[:, lo:hi], dev, dtype), _to_dev(er[:, lo:hi], dev), edges_t,
+            _to_dev(x_rel, dev, "i4"), window, skipna=skipna, closed=closed, uniform_er=uniform,
         )
 
-    return _windowed_accumulate(kernel, (sv.shape[0], sv.shape[1], len(r_edges) - 1),
+    return _windowed_accumulate(kernel, (sv.shape[0], sv.shape[1], len(edges_t) - 1),
                                 len(x_bounds) - 1, x_bounds, chunk_pings, 3)
 
 
@@ -219,21 +179,15 @@ def windowed_sum_raw_np(values, er, r_edges, x_bounds, closed="left", chunk_ping
                         device="cuda"):
     """NaN-skipping raw bin sums (float64) of ``values``, as
     :func:`windowed_partials_np` bins them."""
-    dev = resolve_device(device)
-    er, r_edges, ridx, ok_r = exact_bin_encode_np(er, r_edges, closed)
-    if not er_is_uniform(er):
-        return _host_exact_partials_np(values, ridx, ok_r, len(r_edges) - 1, x_bounds,
-                                       skipna=True, lin_domain=False,
-                                       chunk_pings=chunk_pings)[0]
-    edges_t = _to_dev(r_edges, dev)
+    dev, er, edges_t, uniform, dtype = _encoded_chunks(er, r_edges, closed, device)
 
     def kernel(lo, hi, x_rel, window):
         return (binned_window_sum_raw(
-            _to_dev(values[:, lo:hi], dev), _to_dev(er[:, lo:hi], dev), edges_t,
-            _to_dev(x_rel, dev, "i4"), window, closed=closed, uniform_er=True,
+            _to_dev(values[:, lo:hi], dev, dtype), _to_dev(er[:, lo:hi], dev), edges_t,
+            _to_dev(x_rel, dev, "i4"), window, closed=closed, uniform_er=uniform,
         ),)
 
-    return _windowed_accumulate(kernel, (values.shape[0], values.shape[1], len(r_edges) - 1),
+    return _windowed_accumulate(kernel, (values.shape[0], values.shape[1], len(edges_t) - 1),
                                 len(x_bounds) - 1, x_bounds, chunk_pings, 1)[0]
 
 
@@ -242,13 +196,13 @@ def banded_x_reduce(blocks, xb):
     """Sum the ping axis of ``blocks`` [C, P, K] over the runs of ``xb``.
 
     xb: int [W+1] non-decreasing ping bounds; pings past ``xb[W]`` (padding
-    parked past the window) join no bin.  One float32 matmul against the 0/1
-    membership matrix, so every bin is an independent sum over its own
-    pings.  Returns [C, W, K] float32.
+    parked past the window) join no bin.  One matmul against the 0/1
+    membership matrix, in ``blocks``' dtype, so every bin is an independent
+    sum over its own pings.  Returns [C, W, K].
     """
     P = blocks.shape[1]
     p_ids = torch.arange(P, device=blocks.device)[:, None]
-    mx = ((p_ids >= xb[None, :-1]) & (p_ids < xb[None, 1:])).to(torch.float32)
+    mx = ((p_ids >= xb[None, :-1]) & (p_ids < xb[None, 1:])).to(blocks.dtype)
     return torch.einsum("cpk,pw->cwk", blocks, mx)
 
 
@@ -257,18 +211,6 @@ def _x_rel_bounds(x_rel, n_x_window):
     return torch.searchsorted(
         x_rel, torch.arange(n_x_window + 1, dtype=x_rel.dtype, device=x_rel.device), side="left"
     )
-
-
-def row_bin_bounds(er, edges, closed: str = "left"):
-    """Per-row bin-boundary positions by binary search: int32 [C, P, n_edges].
-
-    er: [C, P, R] monotone increasing along R.  NaNs map to +inf, so they
-    drop out only as a row suffix (ragged padding) or whole rows.
-    """
-    side = "left" if closed == "left" else "right"
-    er_clean = torch.where(torch.isnan(er), torch.inf, er).contiguous()
-    values = edges.to(er.dtype).expand(*er.shape[:2], edges.shape[0]).contiguous()
-    return torch.searchsorted(er_clean, values, side=side).to(torch.int32)
 
 
 def _prefix_gather_diff(values, bounds, axis):
@@ -292,7 +234,7 @@ def _uniform_bin_matmul(vals3, er_grid, r_edges, closed: str):
         m = (eg > r_edges[None, None, :-1]) & (eg <= r_edges[None, None, 1:])
     else:
         m = (eg >= r_edges[None, None, :-1]) & (eg < r_edges[None, None, 1:])
-    return torch.bmm(vals3, m.to(torch.float32))
+    return torch.bmm(vals3, m.to(vals3.dtype))
 
 
 def _grid_of(er):
@@ -301,47 +243,72 @@ def _grid_of(er):
     return torch.where(g == -torch.inf, torch.nan, g)
 
 
-def binned_window_partials(sv_db, er, r_edges, x_rel, n_x_window: int, skipna: bool = True,
-                           closed: str = "left", uniform_er: bool = False):
-    """Chunk-invariant partial bin sums on a local ping-bin window.
+def _sample_bin_sums(er, r_edges, closed: str):
+    """Range-bin sums for a grid that varies by ping: a function taking
+    [C, P, R] values to [C, P, n_r].
 
-    sv_db, er [C, P, R] float32; r_edges [n_r+1]; x_rel [P] sorted
-    window-relative ping-bin ids (ids outside [0, n_x_window) join no bin).
-    ``uniform_er`` (decide with :func:`er_is_uniform`) takes the per-channel
-    0/1 matmul over the range axis instead of per-row prefix sums.  Returns
-    (sums, counts, nan_counts) float32 [C, n_x_window, n_r].
+    Each sample adds into its own bin (a scatter-add by its bin id), so a
+    quiet bin after loud samples keeps its precision, and the samples of a
+    row may come in any order, NaN ranges anywhere.
     """
+    n_r = r_edges.shape[0] - 1
+    idx = torch.searchsorted(r_edges.to(er.dtype), er.contiguous(),
+                             side="right" if closed == "left" else "left") - 1
+    ids = torch.where((idx >= 0) & (idx < n_r) & ~torch.isnan(er), idx, n_r)
+
+    def reduce(values):
+        out = values.new_zeros(*values.shape[:2], n_r + 1)
+        return out.scatter_add_(2, ids, values)[:, :, :n_r]
+
+    return reduce
+
+
+def _range_bin_sums(er, r_edges, closed: str, uniform_er: bool):
+    """[C, P, R] -> [C, P, n_r] range-bin sums over ``er``'s grid: the 0/1
+    matmul on its ping-invariant row, else the per-sample scatter-add."""
+    if uniform_er:
+        grid = _grid_of(er)
+        return lambda values: _uniform_bin_matmul(values, grid, r_edges, closed)
+    return _sample_bin_sums(er, r_edges, closed)
+
+
+def _window_partials(sv_db, in_bin, range_sums, x_rel, n_x_window, skipna):
+    """(sums, counts, nan_counts) [C, n_x_window, n_r] of linear Sv:
+    ``range_sums`` bins the range axis, ``in_bin`` (broadcast to sv_db)
+    marks the samples whose range joins a bin."""
     lin = torch.pow(10.0, sv_db / 10.0)
     isnan_sv = torch.isnan(sv_db)
-    ok = ~isnan_sv
-    if uniform_er:
-        er_grid = _grid_of(er)
-        okv = ok & ~torch.isnan(er)
-        s1 = _uniform_bin_matmul(torch.where(okv, lin, 0.0), er_grid, r_edges, closed)
-        n1 = _uniform_bin_matmul(okv.to(torch.float32), er_grid, r_edges, closed)
-        nan1 = torch.zeros_like(n1) if skipna else _uniform_bin_matmul(
-            (isnan_sv & ~torch.isnan(er)).to(torch.float32), er_grid, r_edges, closed)
-    else:
-        rb = row_bin_bounds(er, r_edges, closed)
-        s1 = _prefix_gather_diff(torch.where(ok, lin, 0.0), rb, 2)
-        n1 = _prefix_gather_diff(ok.to(torch.float32), rb, 2)
-        nan1 = torch.zeros_like(n1) if skipna else _prefix_gather_diff(
-            isnan_sv.to(torch.float32), rb, 2)
+    ok = in_bin & ~isnan_sv
+    s1 = range_sums(torch.where(ok, lin, 0.0))
+    n1 = range_sums(ok.to(lin.dtype))
+    nan1 = torch.zeros_like(n1) if skipna else range_sums((isnan_sv & in_bin).to(lin.dtype))
     n_r = s1.shape[2]
     stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2), _x_rel_bounds(x_rel, n_x_window))
     return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
 
 
+def binned_window_partials(sv_db, er, r_edges, x_rel, n_x_window: int, skipna: bool = True,
+                           closed: str = "left", uniform_er: bool = False):
+    """Chunk-invariant partial bin sums on a local ping-bin window.
+
+    sv_db, er [C, P, R] (float32, or float64 sums from float64 sv_db);
+    r_edges [n_r+1]; x_rel [P] sorted window-relative ping-bin ids (ids
+    outside [0, n_x_window) join no bin).  ``uniform_er`` (decide with
+    :func:`er_is_uniform`) takes the per-channel 0/1 matmul over the range
+    axis, as :func:`binned_window_partials_grid` does; otherwise each sample
+    adds into its own bin.  Returns (sums, counts, nan_counts)
+    [C, n_x_window, n_r].
+    """
+    return _window_partials(sv_db, ~torch.isnan(er),
+                            _range_bin_sums(er, r_edges, closed, uniform_er),
+                            x_rel, n_x_window, skipna)
+
+
 def binned_window_sum_raw(values, er, r_edges, x_rel, n_x_window: int, closed: str = "left",
                           uniform_er: bool = False):
     """NaN-skipping raw sums on a local ping-bin window: [C, n_x_window, n_r]."""
-    ok = ~torch.isnan(values)
-    if uniform_er:
-        okv = ok & ~torch.isnan(er)
-        s1 = _uniform_bin_matmul(torch.where(okv, values, 0.0), _grid_of(er), r_edges, closed)
-    else:
-        rb = row_bin_bounds(er, r_edges, closed)
-        s1 = _prefix_gather_diff(torch.where(ok, values, 0.0), rb, 2)
+    ok = ~torch.isnan(values) & ~torch.isnan(er)
+    s1 = _range_bin_sums(er, r_edges, closed, uniform_er)(torch.where(ok, values, 0.0))
     return banded_x_reduce(s1, _x_rel_bounds(x_rel, n_x_window))
 
 
@@ -354,17 +321,9 @@ def binned_window_partials_grid(sv_db, er_grid, r_edges, x_rel, n_x_window: int,
     uniform_er=True)`` on the row broadcast over the pings.  Returns
     (sums, counts, nan_counts) float32 [C, n_x_window, n_r].
     """
-    lin = torch.pow(10.0, sv_db / 10.0)
-    isnan_sv = torch.isnan(sv_db)
-    in_grid = ~torch.isnan(er_grid)[:, None, :]
-    ok = ~isnan_sv & in_grid
-    s1 = _uniform_bin_matmul(torch.where(ok, lin, 0.0), er_grid, r_edges, closed)
-    n1 = _uniform_bin_matmul(ok.to(torch.float32), er_grid, r_edges, closed)
-    nan1 = torch.zeros_like(n1) if skipna else _uniform_bin_matmul(
-        (isnan_sv & in_grid).to(torch.float32), er_grid, r_edges, closed)
-    n_r = s1.shape[2]
-    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2), _x_rel_bounds(x_rel, n_x_window))
-    return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
+    return _window_partials(sv_db, ~torch.isnan(er_grid)[:, None, :],
+                            lambda v: _uniform_bin_matmul(v, er_grid, r_edges, closed),
+                            x_rel, n_x_window, skipna)
 
 
 def binned_window_row_sum(values_row, er_row, r_edges, x_rel, n_x_window: int,
@@ -379,62 +338,5 @@ def binned_window_row_sum(values_row, er_row, r_edges, x_rel, n_x_window: int,
     ok = ~torch.isnan(values_row) & ~torch.isnan(er_row)
     s_row = _uniform_bin_matmul(torch.where(ok, values_row, 0.0)[:, None, :], er_row,
                                 r_edges, closed)[:, 0, :]
-    ping_counts = torch.diff(_x_rel_bounds(x_rel, n_x_window)).to(torch.float32)
+    ping_counts = torch.diff(_x_rel_bounds(x_rel, n_x_window)).to(s_row.dtype)
     return s_row[:, None, :] * ping_counts[None, :, None]
-
-
-def _encoded_row_lengths(er_enc, n_r: int):
-    """Per-row run lengths int64 [C, P, n_r+2] of the bins in encoded membership.
-
-    er_enc [C, P, R]: ``idx + 0.5`` of a sample's bin, NaN where it joins no
-    bin (:func:`exact_bin_encode_np`), bin ids non-decreasing along R where
-    set.  A sample outside every bin takes the id of the last binned sample
-    before it (-1 before any), so the ids stay sorted whatever the NaNs'
-    places (below the first edge, above the last, holes); callers zero the
-    values of those samples.  Runs: the head before bin 0, the n_r bins,
-    the tail after the last.
-    """
-    key = torch.where(torch.isnan(er_enc), -1.0, er_enc).cummax(dim=2).values
-    edges = torch.arange(n_r + 1, dtype=key.dtype, device=key.device)
-    bounds = torch.searchsorted(key.contiguous(),
-                                edges.expand(*key.shape[:2], n_r + 1).contiguous())
-    ends = torch.full_like(bounds[:, :, :1], key.shape[2])
-    return torch.diff(bounds, dim=2, prepend=torch.zeros_like(ends), append=ends)
-
-
-def _run_sums(values, lengths):
-    """Sum of each bin's run of ``values`` [C, P, R], each on its own:
-    [C, P, n_r] (the head and tail runs dropped)."""
-    return torch.segment_reduce(values, "sum", lengths=lengths, axis=2)[:, :, 1:-1]
-
-
-def binned_window_partials_rows(sv_db, er_enc, n_r: int, x_rel, n_x_window: int,
-                                skipna: bool = True):
-    """:func:`binned_window_partials` for a range grid that varies by ping.
-
-    er_enc [C, P, R] float32 encoded membership (:func:`exact_bin_encode_np`).
-    Each row's bins are contiguous runs, each summed on its own (a segment
-    reduction, no prefix sums), so a quiet bin after loud samples keeps its
-    float32 precision, and samples outside every bin (NaN anywhere in the
-    row) join none.  Returns (sums, counts, nan_counts) float32
-    [C, n_x_window, n_r].
-    """
-    lengths = _encoded_row_lengths(er_enc, n_r)
-    in_bin = ~torch.isnan(er_enc)
-    isnan_sv = torch.isnan(sv_db)
-    ok = in_bin & ~isnan_sv
-    lin = torch.pow(10.0, sv_db / 10.0)
-    s1 = _run_sums(torch.where(ok, lin, 0.0), lengths)
-    n1 = _run_sums(ok.to(torch.float32), lengths)
-    nan1 = torch.zeros_like(n1) if skipna else _run_sums(
-        (isnan_sv & in_bin).to(torch.float32), lengths)
-    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2), _x_rel_bounds(x_rel, n_x_window))
-    return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
-
-
-def binned_window_sum_raw_rows(values, er_enc, n_r: int, x_rel, n_x_window: int):
-    """NaN-skipping raw sums of ``values`` on encoded per-ping membership,
-    as :func:`binned_window_partials_rows` bins them: [C, n_x_window, n_r]."""
-    ok = ~torch.isnan(values) & ~torch.isnan(er_enc)
-    s1 = _run_sums(torch.where(ok, values, 0.0), _encoded_row_lengths(er_enc, n_r))
-    return banded_x_reduce(s1, _x_rel_bounds(x_rel, n_x_window))

@@ -43,7 +43,7 @@ from ..commongrid.utils import _parse_x_bin, get_distance_from_latlon, ping_time
 from ..convert.api import open_raw
 from ..convert.simrad.decode import INDEX2POWER
 from ..convert.simrad.framing import CorruptDatagramError, scan_ek_extent
-from ..device import resolve_device
+from ..device import device_name, resolve_device
 from ..ops import binning
 from ..utils.compute import _lin2log
 from ..utils.geodesy import pairwise_distance_nmi
@@ -259,10 +259,6 @@ def _is_uniform(dr, shift):
     return bool(np.all(dr == dr[:, :1]) and np.all(shift == shift[:, :1]))
 
 
-def _device_name(dev):
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
-
-
 def _finalize(sums, counts, chans, ping_edges, echo_range, timer, dev):
     with timer.stage("finalize"):
         with np.errstate(invalid="ignore", divide="ignore"):
@@ -276,7 +272,7 @@ def _finalize(sums, counts, chans, ping_edges, echo_range, timer, dev):
         )
         out["Sv"] = (("channel", "ping_time", "echo_range"), mvbs)
         out.attrs["stage_timing"] = str(timer.report(log=False))
-        out.attrs["device"] = _device_name(dev)
+        out.attrs["device"] = device_name(dev)
     return out
 
 
@@ -545,24 +541,14 @@ def _sv_providers(sv_sources, reopen):
 
 
 def _uniform_grid_row(arr):
-    """Ping-invariant [C, P, R] range operand -> ([C, R] row, ok).
-
-    ok is False when some ping has a NaN hole where the row is finite
-    (per-ping holes the row cannot represent); callers keep the per-ping
-    route then."""
+    """[C, P, R] range operand -> ([C, R] row, ok): ok when every ping
+    equals the row, NaN holes included (the grid route); a file whose grid
+    or holes vary by ping keeps the per-ping route."""
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", category=RuntimeWarning)
         row = np.nanmax(arr, axis=1)  # [C, R]
-    ok = not np.any(np.isnan(arr) & ~np.isnan(row)[:, None, :])
-    return row, ok
-
-
-def _grid_row(arr):
-    """(row, True) where ``arr`` [C, P, R] is one grid for every ping, NaN
-    holes included (the grid route), else (None, False)."""
-    if not binning.er_is_uniform(arr):
-        return None, False
-    return _uniform_grid_row(arr)
+    same = (arr == row[:, None]) | (np.isnan(arr) & np.isnan(row)[:, None])
+    return row, bool(same.all())
 
 
 def _check_channels(chans, ds):
@@ -602,10 +588,9 @@ def run_survey_mvbs(
     Each file takes the grid route when its range grid is the same for
     every ping (NaN holes included), decided per file (the JAX package
     decides once for the survey, a static argument of its jitted step);
-    the others take the per-ping route, which sums each bin of each ping on
-    its own over the runs the host's float64 membership gives
-    (``binned_window_partials_rows``; the JAX package's prefix sums there
-    lose quiet bins).
+    the others take the per-ping route, where each sample adds into the bin
+    the host's float64 membership gives it (``binned_window_partials``; the
+    JAX package's prefix sums there lose quiet bins).
     Not ported yet (``NotImplementedError``): ``mesh``, ``freq_diff``,
     ``noise_masks`` (ROADMAP Queue 1 items 9, 7, 8).
 
@@ -656,7 +641,7 @@ def run_survey_mvbs(
             er_all = np.asarray(ds[range_var].values, dtype="f8")
             if er_all.shape != sv_all.shape:
                 er_all = np.broadcast_to(er_all, sv_all.shape)
-            row, use_grid = _grid_row(er_all)
+            row, use_grid = _uniform_grid_row(er_all)
             if use_grid:
                 row = binning._to_dev(binning.exact_bin_encode_np(row, range_edges)[0], dev)
         routes.append("grid" if use_grid else "per_ping")
@@ -673,8 +658,8 @@ def run_survey_mvbs(
                     s, c, _ = binning.binned_window_partials_grid(sv, row, enc_edges, x_rel,
                                                                   window)
                 else:
-                    s, c, _ = binning.binned_window_partials_rows(
-                        sv, binning._to_dev(er_enc, dev), n_r, x_rel, window)
+                    s, c, _ = binning.binned_window_partials(
+                        sv, binning._to_dev(er_enc, dev), enc_edges, x_rel, window)
             acc.push(s, c, x_base)
         del ds, sv_all, er_all
     sums, counts = acc.finish()
@@ -691,7 +676,7 @@ def run_survey_mvbs(
         )
         out["Sv"] = (("channel", "ping_time", range_var), mvbs)
         out.attrs["stage_timing"] = str(timer.report(log=False))
-        out.attrs["device"] = _device_name(dev)
+        out.attrs["device"] = device_name(dev)
         out.attrs["routes"] = routes
     return out
 
@@ -805,7 +790,7 @@ def run_survey_nasc(
             depth_b = np.broadcast_to(
                 _conform_range(depth, ds, "depth", sv_all.shape), sv_all.shape)
             sv_all, depth_b = _orient_range_axis(sv_all, depth_b)
-            row, use_grid = _grid_row(depth_b)
+            row, use_grid = _uniform_grid_row(depth_b)
             if use_grid:
                 ddep_row = binning._to_dev(np.diff(row, axis=1), dev)
                 lower_row = binning._to_dev(
@@ -834,10 +819,10 @@ def run_survey_nasc(
                                                       window, closed=closed)
                 else:
                     dep_t = binning._to_dev(dep_enc, dev)
-                    s, c, nc = binning.binned_window_partials_rows(
-                        sv, dep_t, n_r, x_rel, window, skipna=bool(skipna))
-                    h = binning.binned_window_sum_raw_rows(
-                        binning._to_dev(ddep, dev), dep_t[:, :, :-1], n_r, x_rel, window)
+                    s, c, nc = binning.binned_window_partials(
+                        sv, dep_t, enc_edges, x_rel, window, skipna=bool(skipna))
+                    h = binning.binned_window_sum_raw(
+                        binning._to_dev(ddep, dev), dep_t[:, :, :-1], enc_edges, x_rel, window)
             acc.push(s, c, nc, h, x_base)
             with timer.stage("host_sums"):
                 ids = x_idx_all[lo:hi]
@@ -888,6 +873,6 @@ def run_survey_nasc(
         prov["processing_function"] = "parallel.run_survey_nasc"
         out.attrs.update(prov)
         out.attrs["stage_timing"] = str(timer.report(log=False))
-        out.attrs["device"] = _device_name(dev)
+        out.attrs["device"] = device_name(dev)
         out.attrs["routes"] = routes
     return out

@@ -427,10 +427,14 @@ class TestBinningOps:
                                       jb.bin_index_np(vals, edges, closed))
         np.testing.assert_array_equal(tb.x_bounds_np(np.sort(vals), edges, closed),
                                       jb.x_bounds_np(np.sort(vals), edges, closed))
-        rb_t = tb.row_bin_bounds(torch.from_numpy(er.astype("f4")),
-                                 torch.from_numpy(edges.astype("f4")), closed)
-        rb_j = jb.row_bin_bounds(er.astype("f4"), edges.astype("f4"), closed)
-        np.testing.assert_array_equal(rb_t.numpy(), np.asarray(rb_j))
+        # the device's per-sample bin ids count each ping as the host's digitize
+        ridx, ok = jb.exact_bin_encode_np(er, edges, closed)[2:]
+        want = np.zeros(er.shape[:2] + (len(edges) - 1,))
+        for c, p in np.ndindex(*er.shape[:2]):
+            want[c, p] = np.bincount(ridx[c, p][ok[c, p]], minlength=len(edges) - 1)
+        got = tb._sample_bin_sums(torch.from_numpy(er), torch.from_numpy(edges), closed)(
+            torch.ones(er.shape, dtype=torch.float64))
+        np.testing.assert_array_equal(got.numpy(), want)
 
     @pytest.mark.parametrize("uniform", [True, False])
     def test_windowed_partials_np(self, uniform):

@@ -25,7 +25,8 @@ launch counted per call; K1 / K2 give the same partials under another slab
 split of the same windows.
 
 The Sv-store streamers' plain-torch binning (``binned_window_partials_grid``,
-``binned_window_row_sum``, and the per-ping ``*_rows`` segment sums) runs
+``binned_window_row_sum``, and the per-ping route's per-sample scatter-add
+in ``binned_window_partials`` / ``binned_window_sum_raw``) runs
 on the card against ``device="cpu"`` at a full-width chunk, 5 x 5,000 x
 4,000 float32: counts exact, sums within rtol 1e-5.
 """
@@ -340,16 +341,13 @@ def test_grid_binning_card_equals_cpu(cuda, skipna):
 
 def test_rows_binning_card_equals_cpu(cuda):
     sv, er, edges, x_rel, n_x = _sv_chunk(12, P=2000, vary=True)
-    enc = tb.exact_bin_encode_np(er, edges)[0]
-    n_r = len(edges) - 1
-    got = tb.binned_window_partials_rows(*_to(cuda, sv, enc), n_r, *_to(cuda, x_rel), n_x,
-                                         skipna=False)
-    want = tb.binned_window_partials_rows(*_to("cpu", sv, enc), n_r, *_to("cpu", x_rel), n_x,
-                                          skipna=False)
+    enc, enc_edges = tb.exact_bin_encode_np(er, edges)[:2]
+    args = (sv, enc, enc_edges, x_rel)
+    got = tb.binned_window_partials(*_to(cuda, *args), n_x, skipna=False)
+    want = tb.binned_window_partials(*_to("cpu", *args), n_x, skipna=False)
     np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
     _close(got, want)
     ddep = np.diff(er, axis=2).astype("f4")
-    _close([tb.binned_window_sum_raw_rows(*_to(cuda, ddep, enc[:, :, :-1]), n_r,
-                                          *_to(cuda, x_rel), n_x)],
-           [tb.binned_window_sum_raw_rows(*_to("cpu", ddep, enc[:, :, :-1]), n_r,
-                                          *_to("cpu", x_rel), n_x)])
+    h_args = (ddep, enc[:, :, :-1], enc_edges, x_rel)
+    _close([tb.binned_window_sum_raw(*_to(cuda, *h_args), n_x)],
+           [tb.binned_window_sum_raw(*_to("cpu", *h_args), n_x)])

@@ -11,10 +11,10 @@ Two parts of the JAX survey streamers are not held as truth here.  On a
 file whose range (depth) grid varies by ping, their per-ping route sums
 each row by float32 prefix sums, which lose a quiet bin after loud samples,
 and finds its bins by a search that a NaN before the first bin (a depth
-above the surface) puts out of order.  The port sums each bin on its own
-over runs from the host's float64 membership, and these cases are held to
-the JAX package's float64 ``compute_MVBS`` / ``compute_NASC`` on the same
-pings instead.  And the port decides per file whether a grid is
+above the surface) puts out of order.  In the port each sample adds into
+the bin the host's float64 membership gives it, and these cases are held
+to the JAX package's float64 ``compute_MVBS`` / ``compute_NASC`` on the
+same pings instead.  And the port decides per file whether a grid is
 ping-invariant, where the JAX package decides once for the survey.
 """
 
@@ -223,8 +223,9 @@ class TestGridBinning:
 
 
 class TestRowsBinning:
-    """The per-ping route for grids that vary by ping: each bin summed on
-    its own over runs from the host's float64 membership."""
+    """The per-ping route for grids that vary by ping (``binned_window_partials``
+    without ``uniform_er``): each sample adds into the bin the host's float64
+    membership gives it."""
 
     def _chunk(self, seed=3, C=2, P=30, R=80, quiet_after_loud=False, hole=True):
         rng = np.random.default_rng(seed)
@@ -241,22 +242,44 @@ class TestRowsBinning:
         x_rel[-3:] = 6  # parked past the window
         return sv, er, np.arange(0, 40.0, 4.0), x_rel, 6
 
+    @staticmethod
+    def _f64_oracle(values, er, edges, x_rel, W, skipna=True, lin_domain=True, closed="left"):
+        """The JAX package's float64 host accumulation on the same membership."""
+        _, _, ridx, ok = jb.exact_bin_encode_np(er, edges, closed)
+        x_bounds = np.searchsorted(x_rel, np.arange(W + 1), side="left")
+        return jb._host_exact_partials_np(values, ridx, ok, len(edges) - 1, x_bounds, skipna,
+                                          lin_domain=lin_domain)
+
+    @staticmethod
+    def _rows(sv, er, edges, x_rel, W, closed="left", **kw):
+        enc, enc_edges = tb.exact_bin_encode_np(er, edges, closed)[:2]
+        return tb.binned_window_partials(
+            *[torch.from_numpy(a) for a in (sv, enc, enc_edges, x_rel)], W, **kw)
+
     @pytest.mark.parametrize("skipna", [True, False])
     @pytest.mark.parametrize("closed", ["left", "right"])
     @pytest.mark.parametrize("quiet_after_loud", [False, True])
     def test_partials_rows_match_f64_oracle(self, skipna, closed, quiet_after_loud):
         sv, er, edges, x_rel, W = self._chunk(quiet_after_loud=quiet_after_loud)
-        enc, _, ridx, ok = tb.exact_bin_encode_np(er, edges, closed)
-        n_r = len(edges) - 1
-        got = tb.binned_window_partials_rows(
-            torch.from_numpy(sv), torch.from_numpy(enc), n_r, torch.from_numpy(x_rel), W,
-            skipna=skipna)
-        x_bounds = np.searchsorted(x_rel, np.arange(W + 1), side="left")
-        want = tb._host_exact_partials_np(sv, ridx, ok, n_r, x_bounds, skipna, lin_domain=True)
+        got = self._rows(sv, er, edges, x_rel, W, closed=closed, skipna=skipna)
+        want = self._f64_oracle(sv, er, edges, x_rel, W, skipna=skipna, closed=closed)
         np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL, atol=0)
         for g, w in zip(got[1:], want[1:]):
             np.testing.assert_array_equal(g.numpy(), w)
         assert want[1].sum() > 0
+
+    def test_partials_rows_any_sample_order(self):
+        """Rows whose range decreases, or comes in no order, bin as the
+        float64 oracle bins them (no run along the row is assumed)."""
+        sv, er, edges, x_rel, W = self._chunk(seed=6)
+        er[0] = er[0, :, ::-1]
+        perm = np.random.default_rng(6).permutation(er.shape[2])
+        er[1], sv[1] = er[1][:, perm], sv[1][:, perm]
+        got = self._rows(sv, er, edges, x_rel, W, skipna=False)
+        want = self._f64_oracle(sv, er, edges, x_rel, W, skipna=False)
+        np.testing.assert_allclose(got[0].numpy(), want[0], rtol=RTOL, atol=0)
+        for g, w in zip(got[1:], want[1:]):
+            np.testing.assert_array_equal(g.numpy(), w)
 
     def test_partials_rows_match_jax_where_jax_holds(self):
         """On rows with no NaN before the first bin or between bins, and no
@@ -264,9 +287,7 @@ class TestRowsBinning:
         sv, er, edges, x_rel, W = self._chunk(seed=4, hole=False)
         er = er + 3.0  # no sample above the first edge
         enc = tb.exact_bin_encode_np(er, edges)[0]
-        got = tb.binned_window_partials_rows(torch.from_numpy(sv), torch.from_numpy(enc),
-                                             len(edges) - 1, torch.from_numpy(x_rel), W,
-                                             skipna=False)
+        got = self._rows(sv, er, edges, x_rel, W, skipna=False)
         want = jb.binned_window_partials(sv, enc, np.arange(len(edges), dtype="f4"), x_rel, W,
                                          skipna=False, uniform_er=False)
         np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=RTOL, atol=0)
@@ -275,14 +296,11 @@ class TestRowsBinning:
 
     def test_sum_raw_rows_match_f64_oracle(self):
         _, er, edges, x_rel, W = self._chunk(seed=5)
-        ddep = np.diff(er, axis=2)
-        enc, _, ridx, ok = tb.exact_bin_encode_np(er[:, :, :-1], edges)
-        got = tb.binned_window_sum_raw_rows(torch.from_numpy(ddep.astype("f4")),
-                                            torch.from_numpy(enc), len(edges) - 1,
-                                            torch.from_numpy(x_rel), W)
-        x_bounds = np.searchsorted(x_rel, np.arange(W + 1), side="left")
-        want = tb._host_exact_partials_np(ddep.astype("f4"), ridx, ok, len(edges) - 1,
-                                          x_bounds, True, lin_domain=False)[0]
+        ddep = np.diff(er, axis=2).astype("f4")
+        enc, enc_edges = tb.exact_bin_encode_np(er[:, :, :-1], edges)[:2]
+        got = tb.binned_window_sum_raw(
+            *[torch.from_numpy(a) for a in (ddep, enc, enc_edges, x_rel)], W)
+        want = self._f64_oracle(ddep, er[:, :, :-1], edges, x_rel, W, lin_domain=False)[0]
         np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-12)
 
 
@@ -580,6 +598,7 @@ class TestComputeRaw:
             t_args = j_args = (r_int, p_int)
         got = tu.compute_raw_MVBS(ds, *t_args, device="cpu")
         want = ju.compute_raw_MVBS(as_package(ds, JDataset), *j_args)
+        assert got.attrs["device"] == "cpu"
         for k in ("channel", "ping_time_bins", "echo_range_bins"):
             np.testing.assert_array_equal(got.coords[k].values, want.coords[k].values)
         g, w = np.asarray(got["Sv"].values), np.asarray(want["Sv"].values)
@@ -600,12 +619,38 @@ class TestComputeRaw:
                     pd.IntervalIndex.from_breaks(x_edges, closed=closed))
         got = tu.compute_raw_NASC(ds, *args, device="cpu")
         want = ju.compute_raw_NASC(as_package(ds, JDataset), *args)
+        assert got.attrs["device"] == "cpu"
         for k in ("channel", "distance_nmi_bins", "depth_bins"):
             np.testing.assert_array_equal(got.coords[k].values, want.coords[k].values)
         g, w = np.asarray(got["sv"].values), np.asarray(want["sv"].values)
         np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
         np.testing.assert_allclose(g, w, rtol=RTOL, equal_nan=True)
         np.testing.assert_array_equal(got["ping_time"].values, want["ping_time"].values)
+
+    @pytest.mark.parametrize("upward", [False, True])
+    def test_raw_on_ping_varying_grids(self, upward):
+        """A grid that varies by ping bins on the device in float64, in any
+        sample order: equal to the JAX package's float64 host accumulation."""
+        ds = wobble(wobble(make_sv(seed=15, dr=0.5), "echo_range", 15), "depth", 16)
+        if upward:
+            for var in ("echo_range", "depth"):
+                ds[var] = (ds[var].dims, np.asarray(ds[var].values)[:, :, ::-1].copy())
+        ds["distance_nmi"] = (("ping_time",), tu.get_distance_from_latlon(ds))
+        r_edges = np.arange(0, 30.0, 4.0)
+        p_edges = T0 + np.arange(0, 70, 20).astype("timedelta64[s]")
+        x_edges = np.arange(0, 1.2, 0.1)
+        got = tu.compute_raw_MVBS(ds, r_edges, p_edges, device="cpu")
+        want = ju.compute_raw_MVBS(as_package(ds, JDataset), r_edges, p_edges)
+        g, w = np.asarray(got["Sv"].values), np.asarray(want["Sv"].values)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-9, equal_nan=True)
+        assert np.isfinite(g).any()
+        got = tu.compute_raw_NASC(ds, r_edges, x_edges, device="cpu")
+        want = ju.compute_raw_NASC(as_package(ds, JDataset), r_edges, x_edges)
+        g, w = np.asarray(got["sv"].values), np.asarray(want["sv"].values)
+        np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+        np.testing.assert_allclose(g, w, rtol=1e-9, equal_nan=True)
+        assert np.isfinite(g).any()
 
     def test_interval_edges_duck_typed(self):
         edges = np.arange(0, 10.0, 2.0)
