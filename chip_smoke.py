@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive echopype_torch's survey and Sv-grid paths once on a CUDA card.
+"""Drive echopype_torch's survey, Sv-grid and EK80 paths once on a CUDA card.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA card (H100), nvcc and PyTorch built for CUDA:
@@ -8,8 +8,9 @@ NVIDIA card (H100), nvcc and PyTorch built for CUDA:
 
 Phases (each prints one line; any failure raises, so the exit code is not 0):
 
-1. start: the card's name and power limit (nvidia-smi), torch / CUDA
-   versions, and whether the port's native ingest scanner (g++, built into
+1. start: the card's name and power limit (nvidia-smi), torch / CUDA /
+   scipy versions, ``torch.backends.cuda.matmul.allow_tf32``, and whether
+   the port's native ingest scanner (g++, built into
    ``echopype_torch/native/``) loaded; fails at once where
    ``torch.cuda.is_available()`` is false;
 2. build the CUDA kernels from ``echopype_torch/csrc/`` (one nvcc per
@@ -60,10 +61,31 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    route sums in float64) on the card each equal a host float64 numpy
    bincount of C's Sv (1e-4 dB, identical NaN masks); stage seconds of every
    run;
-10. print the kernel table as one JSON line (launches on the main path,
-   error, kernel / plain twin ms, bound ms and what sets it; no single
-   PyTorch call computes any of the four functions, so ``library_ms`` is
-   null), then the result line ``{"ok": true, "device": {...}}`` last.
+10. EK80 (``ek80``): two files of tests/synth_ek80.py (70 kHz FM, 120 kHz
+   CW complex, 38 kHz GPT power; 2,000 pings x 8,192 samples x 4 sectors
+   each, consecutive in time): ``open_raw`` (seconds, each complex
+   channel's replica length); ``compute_Sv`` on file A in BB, CW complex
+   and CW power on the card, each against the same call on the CPU over
+   the first 200 pings (1e-3 dB BB, 1e-4 dB otherwise, identical NaN
+   masks) and BB against ``precision="float64"`` there (1e-3 dB, no NaN-mask
+   mismatch; p50 / p99 / max printed); the matched filter's matmul alone
+   per complex channel, float64 (compute_Sv's) and float32 (the fused
+   step's), CUDA events, median of 20, against its bound, with one
+   ``conv1d`` computing the same correlation timed beside it; then
+   ``run_survey_mvbs_from_raw`` (5 m x 20 s, chunks of 1,000 pings) over
+   both files in power mode, BB chunked and BB fused, and CW complex fused
+   and chunked on A, each on cuda and cpu: within 1e-4 dB with identical
+   NaN masks and coordinates, fused vs chunked within 5e-3 dB (0.2 dB in
+   the last range bin, tests/test_survey.py:536-538), K1 + K2 launched
+   once per power-mode chunk, nothing launched on cpu; walls, stage
+   seconds and pings/s of every run;
+11. print the matched filter's launches and timings (a cuBLAS matmul, not
+   a Pallas kernel's port), then the kernel table as one JSON line
+   (launches on the main paths, the survey's and the ek80 power leg's for
+   K1 / K2; error, kernel / plain twin ms, bound ms and what sets it; no
+   single PyTorch call computes any of the four functions, so
+   ``library_ms`` is null), then the result line ``{"ok": true, "device":
+   {...}}`` last.
 
 Imports nothing of JAX.  The synthetic files are written under ``build/``
 in the checkout and removed at the end.
@@ -96,6 +118,15 @@ MIN_SHARE_OF_BOUND = 0.5  # K3 / K4: bound_ms / ms at the full width
 E2E_PINGS = (10_000, 10_000, 5_000)  # files A, B (uniform dr) and C (dr by ping)
 KERNEL_SOURCES = ("window_partials", "sv_bin_partials")
 COARSE_PING_BIN_S = 4000  # two ping windows over a chunk's 5,000 pings
+# the ek80 phase: two files of tests/synth_ek80.py's three channels (70 kHz
+# FM, 120 kHz CW complex, 38 kHz GPT power), 4 sectors, the JAX package's
+# broadband measurement shape (ops/matched_filter.py:25-29)
+EK80_PINGS, EK80_R, EK80_SECTORS = 2000, 8192, 4
+EK80_HEAD = 200  # pings of the cpu and float64 compute_Sv checks
+EK80_GRID = dict(range_bin="5m", ping_time_bin="20s", chunk_pings=1000)
+EK80_CPU_DB = {"BB": 1e-3, "CW_complex": 1e-4, "CW_power": 1e-4}
+BB_F64_DB = 1e-3
+FUSED_VS_CHUNKED_DB, FUSED_LAST_BIN_DB = 5e-3, 0.2  # tests/test_survey.py:536-538
 # H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.  The latter counts an FMA
 # as two: the card issues half as many instructions, 128 lanes a clock per
@@ -564,6 +595,218 @@ def sv_survey_phase(files, grid_a):
         raise AssertionError(f"sv_survey phase failed: {failed}")
 
 
+def write_ek80_files():
+    """Files A and B: ``EK80_PINGS`` pings each, consecutive in time."""
+    from synth_ek80 import write_ek80_raw
+
+    t0 = np.datetime64("2021-02-01T00:00:00", "ns")
+    files = []
+    for i, tag in enumerate("AB"):
+        path = DATA_DIR / f"SMOKE80{tag}-D20210201-T000000.raw"
+        write_ek80_raw(path, n_pings=EK80_PINGS, n_samples=EK80_R, n_sectors=EK80_SECTORS,
+                       t0=t0 + np.timedelta64(i * EK80_PINGS, "s"), seed=100 + i)
+        files.append(str(path))
+    return files
+
+
+def _db_stats(a, b):
+    """(p50, p99, max) of |a - b| over samples finite in both, and the count
+    of NaN-mask mismatches."""
+    a, b = np.asarray(a, dtype="f8"), np.asarray(b, dtype="f8")
+    d = np.abs(a - b)[np.isfinite(a) & np.isfinite(b)]
+    p50, p99, mx = (float(v) for v in np.percentile(d, [50, 99, 100]))
+    return p50, p99, mx, int(np.count_nonzero(np.isnan(a) != np.isnan(b)))
+
+
+def matched_filter_timing(ed, bp, ch, replica):
+    """The matched filter's device program alone (the blocked-Toeplitz
+    matmul of ``ops/matched_filter.py``) on one channel of file A, 2,000
+    pings x 4 sectors x 8,192 float32 samples, timed with CUDA events in
+    both of its forms: float64 accumulation (compute_Sv's) and float32 (the
+    fused survey step's); each with its bound and one
+    ``torch.nn.functional.conv1d`` computing the same correlation in the
+    same dtype (the library call), timed and checked beside it."""
+    from echopype_torch.ops import matched_filter as mf
+
+    dev = torch.device("cuda")
+    beam = ed[bp].sel(channel=[ch])
+    lanes = []
+    for part in ("backscatter_r", "backscatter_i"):
+        x = np.asarray(beam[part].values, dtype="f4")[0]  # [P, R, B]
+        P, R, B = x.shape
+        x = np.nan_to_num(x.transpose(0, 2, 1).reshape(P * B, R))
+        lanes.append(torch.from_numpy(np.ascontiguousarray(x)).to(dev))
+    rep = np.flipud(np.conj(np.asarray(replica)))
+    L, T, z, n_lanes = len(rep), mf._block_t(len(rep)), mf._leading_zeros(replica), P * B
+    torch.backends.cudnn.allow_tf32 = False
+    out = []
+    for dtype in (torch.float64, torch.float32):
+        hr, hi = (torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+                  for a in (rep.real, rep.imag))
+
+        def product():
+            return mf._toeplitz_conv(*(x.to(dtype) for x in lanes), hr, hi, L - 1, R,
+                                     tail_zeros=z)
+
+        ms = cuda_ms(product)
+        re, im = product()
+        # the library call: conv1d cross-correlates, so the kernel is the
+        # conjugated replica in the real block form [[cr, -ci], [ci, cr]]
+        cr, ci = hr.flip(0), hi.flip(0)
+        weight = torch.stack([torch.stack([cr, -ci]), torch.stack([ci, cr])])  # [2, 2, L]
+        x2 = torch.nn.functional.pad(torch.stack(lanes, dim=1).to(dtype), (0, L - 1))
+        library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x2, weight))
+        lib = torch.nn.functional.conv1d(x2, weight)
+        scale = float(torch.maximum(re.abs().max(), im.abs().max()))
+        lib_rel = float(torch.maximum((lib[:, 0] - re).abs().max(),
+                                      (lib[:, 1] - im).abs().max())) / scale
+        useful = 8.0 * n_lanes * R * L  # complex MACs, 4 multiplies and 4 adds each
+        # float32 lanes in, the outputs out in the product's dtype, the replica
+        nbytes = 2 * 4 * n_lanes * R + 2 * re.element_size() * n_lanes * R + 2 * 8 * L
+        t_ops, t_bytes = useful / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        out.append({"channel": ch, "dtype": str(dtype).split(".")[-1], "lanes": n_lanes, "R": R,
+                    "L": L, "T": T, "useful_flop": useful,
+                    "issued_flop": useful * (T + L - 1) / L, "bytes": nbytes, "ms": ms,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                    "share_of_bound": max(t_ops, t_bytes) / ms, "library_ms": library_ms,
+                    "library_max_rel_err": lib_rel})
+        del re, im, x2, lib
+        torch.cuda.empty_cache()
+        if lib_rel > (1e-12 if dtype == torch.float64 else 2e-6):
+            raise AssertionError(f"matched filter and conv1d disagree on {ch}: {lib_rel}")
+    return out
+
+
+def ek80_phase(files):
+    """EK80 on the card: open_raw, compute_Sv in BB / CW complex / CW power
+    against the CPU and (BB) float64, the matched filter alone against its
+    bound, and run_survey_mvbs_from_raw's power, BB chunked, BB fused and CW
+    complex legs on cuda and cpu.  Returns the K1/K2 launches of the power
+    leg and the matched filter's launches and timings."""
+    import echopype_torch as et
+    from echopype_torch.calibrate.ek80 import CalibrateEK80
+    from echopype_torch.echodata.simrad import retrieve_correct_beam_group
+    from echopype_torch.ops import matched_filter as mf
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.parallel.survey import _slice_echodata_pings
+    from echopype_torch.utils.profiling import StageTimer
+
+    seconds = {}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[stage] = round(time.perf_counter() - t0, 3)
+        return out
+
+    ed = timed("open_raw_A", lambda: et.open_raw(files[0], sonar_model="EK80"))
+    timed("open_raw_B", lambda: et.open_raw(files[1], sonar_model="EK80"))  # timed, not kept
+    replicas = {}
+    for wm in ("BB", "CW"):
+        tx = CalibrateEK80(ed, waveform_mode=wm, encode_mode="complex",
+                           device="cpu")._complex_sv_scalars()["tx"]
+        replicas.update({(wm, ch): y for ch, y in tx.items()})
+    say("ek80_open", pings=EK80_PINGS, files=len(files), seconds=json.dumps(seconds),
+        replica_L=json.dumps({f"{wm} {ch}": len(y) for (wm, ch), y in replicas.items()}))
+
+    checks, fields = {}, {}
+    mf.reset_launches()
+    for name, (wm, em) in {"BB": ("BB", "complex"), "CW_complex": ("CW", "complex"),
+                           "CW_power": ("CW", "power")}.items():
+        sv = timed(f"compute_Sv_{name}",
+                   lambda: et.calibrate.compute_Sv(ed, waveform_mode=wm, encode_mode=em))
+        head = _slice_echodata_pings(ed, retrieve_correct_beam_group(ed, wm, em),
+                                     slice(0, EK80_HEAD))
+        cpu = timed(f"compute_Sv_{name}_cpu_head", lambda: et.calibrate.compute_Sv(
+            head, waveform_mode=wm, encode_mode=em, device="cpu"))
+        g = np.asarray(sv["Sv"].values)[:, :EK80_HEAD]
+        p50, p99, mx, nan_bad = _db_stats(g, cpu["Sv"].values)
+        fields[f"{name}_vs_cpu_dB"] = {"p50": p50, "p99": p99, "max": mx, "nan_mismatch": nan_bad}
+        checks[f"compute_Sv {name} cuda vs cpu"] = (nan_bad == 0 and mx <= EK80_CPU_DB[name]
+                                                    and np.isfinite(g).mean() > 0.5)
+        if name == "BB":
+            f64 = timed("compute_Sv_BB_f64_head", lambda: et.calibrate.compute_Sv(
+                head, waveform_mode=wm, encode_mode=em, precision="float64"))
+            p50, p99, mx, nan_bad = _db_stats(g, f64["Sv"].values)
+            fields["BB_f32_vs_f64_dB"] = {"p50": p50, "p99": p99, "max": mx,
+                                          "nan_mismatch": nan_bad}
+            checks["compute_Sv BB float32 vs float64"] = nan_bad == 0 and mx <= BB_F64_DB
+        del sv, cpu
+    compute_sv_launches = dict(mf.LAUNCHES)
+    say("ek80_compute_Sv", shape=[1, EK80_PINGS, EK80_R], seconds=json.dumps(seconds),
+        matched_filter_launches=json.dumps(compute_sv_launches),
+        **{k: json.dumps(v) for k, v in fields.items()})
+
+    timings = [t for (wm, ch), y in replicas.items()
+               for t in matched_filter_timing(ed, retrieve_correct_beam_group(ed, wm, "complex"),
+                                              ch, y)]
+    for t in timings:
+        say("matched_filter", **{k: (round(v, 4) if isinstance(v, float) and v < 1e6 else v)
+                                 for k, v in t.items()})
+    del ed
+
+    runs, walls, launches = {}, {}, {}
+    legs = {
+        "power": (files, {}),
+        "bb_chunked": (files, dict(waveform_mode="BB", encode_mode="complex")),
+        "bb_fused": (files, dict(waveform_mode="BB", encode_mode="complex", device_fused=True)),
+        "cw_fused_A": (files[:1], dict(waveform_mode="CW", encode_mode="complex",
+                                       device_fused=True)),
+        "cw_chunked_A": (files[:1], dict(waveform_mode="CW", encode_mode="complex")),
+    }
+    for leg, (srcs, kw) in legs.items():
+        for device in ("cuda", "cpu"):
+            wp.reset_launches()
+            mf.reset_launches()
+            t0 = time.perf_counter()
+            out = et.run_survey_mvbs_from_raw(srcs, sonar_model="EK80", timer=StageTimer(),
+                                              device=device, **EK80_GRID, **kw)
+            torch.cuda.synchronize()
+            walls[f"{leg}_{device}"] = round(time.perf_counter() - t0, 3)
+            runs[f"{leg}_{device}"] = out
+            launches[f"{leg}_{device}"] = {**wp.LAUNCHES, **mf.LAUNCHES}
+    for k, v in runs.items():
+        n = EK80_PINGS * (1 if k.startswith("cw") else len(files))
+        print(f"[ek80_survey_stages] {k} pings_per_s={round(n / walls[k], 1)} "
+              f"{v.attrs['stage_timing']}", flush=True)
+    diffs = {}
+    for leg in legs:
+        g, w = runs[f"{leg}_cuda"], runs[f"{leg}_cpu"]
+        db, same_nan = _max_db(g["Sv"].values, w["Sv"].values)
+        diffs[f"{leg}_cuda_vs_cpu_dB"] = db
+        finite = float(np.isfinite(np.asarray(g["Sv"].values)).mean())
+        checks[f"{leg} cuda vs cpu"] = (
+            same_nan and db <= MVBS_ATOL_DB and finite > 0.5
+            and _same_coords(g, w, ("channel", "ping_time", "echo_range"))
+            and g.attrs["device"] == torch.cuda.get_device_name(0))
+    for fused, chunked in (("bb_fused", "bb_chunked"), ("cw_fused_A", "cw_chunked_A")):
+        a = np.asarray(runs[f"{chunked}_cuda"]["Sv"].values)
+        b = np.asarray(runs[f"{fused}_cuda"]["Sv"].values)
+        same_nan = a.shape == b.shape and np.array_equal(np.isnan(a), np.isnan(b))
+        body = float(np.nanmax(np.abs(b[:, :, :-1] - a[:, :, :-1]))) if same_nan else np.inf
+        last = float(np.nanmax(np.abs(b[:, :, -1] - a[:, :, -1]))) if same_nan else np.inf
+        diffs[f"{fused}_vs_chunked_dB"] = [body, last]
+        checks[f"{fused} vs {chunked}"] = (same_nan and body <= FUSED_VS_CHUNKED_DB
+                                           and last <= FUSED_LAST_BIN_DB)
+    power = launches["power_cuda"]
+    chunks = len(files) * -(-EK80_PINGS // EK80_GRID["chunk_pings"])
+    checks["power leg launches"] = (power["window_partials_uniform"] + power["window_partials"]
+                                    == chunks and power["toeplitz_matmul"] == 0)
+    checks["no launches on cpu"] = not any(v for k, d in launches.items() if k.endswith("cpu")
+                                           for v in d.values())
+    say("ek80_survey", walls_s=json.dumps(walls), launches=json.dumps(launches),
+        mvbs_shape=list(runs["bb_fused_cuda"]["Sv"].shape), diffs=json.dumps(diffs))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"ek80 phase failed: {failed}")
+    mf_launches = sum(d["toeplitz_matmul"] for k, d in launches.items() if k.endswith("cuda"))
+    return ({k: power[k] for k in ("window_partials_uniform", "window_partials")},
+            {"launches": mf_launches + compute_sv_launches["toeplitz_matmul"],
+             "timings": timings})
+
+
 def write_files():
     sys.path.insert(0, str(ROOT / "tests"))
     from synth_ek60 import write_ek60_raw
@@ -596,9 +839,12 @@ def main():
     from echopype_torch import native
     from echopype_torch.ops import window_partials as wp
 
+    import scipy
+
     scanner = native.load_native()
     say("start", card=repr(smi), torch=torch.__version__, cuda=torch.version.cuda,
         python=sys.version.split()[0], device_count=torch.cuda.device_count(),
+        scipy=scipy.__version__, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
         native_scanner=scanner is not None,
         native_lib=repr(str(Path(scanner._name).relative_to(ROOT)) if scanner else None))
     from echopype_torch.ops._build import build
@@ -642,6 +888,11 @@ def main():
         sv_launches, grid_a = sv_grid_phase(files[0])
         sv_survey_phase(files, grid_a)
         del grid_a
+        t0 = time.perf_counter()
+        files80 = write_ek80_files()
+        say("write_ek80", files=len(files80), seconds=round(time.perf_counter() - t0, 2),
+            GB=round(sum(Path(f).stat().st_size for f in files80) / 1e9, 3))
+        ek80_launches, matched_filter = ek80_phase(files80)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -668,15 +919,19 @@ def main():
     if not (grid_ok and same_coords and same_nan and max_db <= MVBS_ATOL_DB and finite > 0.9):
         raise AssertionError("card MVBS disagrees with the CPU run")
 
+    # the matched filter is no Pallas kernel's port (a cuBLAS matmul), so it
+    # is not in the kernels line; its row of PERF.md's second table
+    say("device_programs", matched_filter=json.dumps(matched_filter))
     src = "echopype_torch/csrc/window_partials.cu"
     src_fused = "echopype_torch/csrc/sv_bin_partials.cu"
     table = [
         {"name": "window_partials_uniform", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:174",
-         "launches": launches["window_partials_uniform"], **k1},
+         "launches": launches["window_partials_uniform"]
+         + ek80_launches["window_partials_uniform"], **k1},
         {"name": "window_partials", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:219",
-         "launches": launches["window_partials"], **k2},
+         "launches": launches["window_partials"] + ek80_launches["window_partials"], **k2},
         {"name": "sv_bin_partials", "route": "cuda", "source": src_fused,
          "replaces": "echopype_tpu/ops/pallas_pipeline.py:30",
          "launches": sv_launches["sv_bin_partials"], **k3},

@@ -1,8 +1,11 @@
 """echopype_torch: the PyTorch / CUDA port of echopype_tpu.
 
-Two paths run here.  The survey path: EK60 ``.raw`` -> ``open_raw`` ->
-power-mode calibration -> MVBS, with the fused window step as hand-written
-CUDA kernels for Hopper (``ops/window_partials.py``).  The Sv path:
+EK60/ES70 and EK80/ES80/EA640 files convert here.  The survey path: raw
+files -> ``open_raw`` -> power-mode calibration -> MVBS, with the fused
+window step as hand-written CUDA kernels for Hopper
+(``ops/window_partials.py``); EK80 complex / broadband channels calibrate
+with the matched filter on the device (``ops/matched_filter.py``) and
+stream chunked or fused (``ops/bb_pipeline.py``).  The Sv path:
 ``calibrate.compute_Sv`` -> ``commongrid.compute_MVBS`` / ``compute_NASC``,
 the fused survey-processing step ``parallel.survey_pipeline_step``
 (power -> Sv and MVBS in one pass, on the CUDA kernels of

@@ -1,10 +1,11 @@
-"""EK60 calibrator: host parameter resolution -> torch sonar-equation pass.
+"""EK60/EK80 calibrators: host parameter resolution -> torch sonar-equation pass.
 
 Counterpart of ``echopype_tpu/calibrate/ek.py`` (reference
-echopype/calibrate/calibrate_ek.py).  Parameter resolution reuses the JAX
-package's host-only resolvers; ``_power_cal_inputs`` is carried over
-unchanged, so the compute_Sv path and the survey streamer fold the same
-float64 [C, P] inputs as the reference package.
+echopype/calibrate/calibrate_ek.py).  Parameter resolution is the port's
+copy of the JAX package's host-only resolvers; ``_power_cal_inputs`` is
+carried over unchanged, so the compute_Sv path and the survey streamer fold
+the same float64 [C, P] inputs as the JAX package.  EK80 (``ek80.py``)
+builds on :class:`CalibrateEK`.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from ..utils.log import _init_logger
 from ..xrlite import DataArray, Dataset
 from .cal_params import get_cal_params_EK
 from .env_params import get_env_params_EK
-from .range import tvg_shift_meters
+from .range import compute_range_EK, tvg_shift_meters
 
 logger = _init_logger(__name__)
 
@@ -31,7 +32,12 @@ class CalibrateBase:
     host in numpy and ignores ``device``.
     """
 
-    def __init__(self, echodata, env_params=None, cal_params=None, **kw):
+    def __init__(self, echodata, env_params=None, cal_params=None, ecs_file=None, **kw):
+        if ecs_file is not None:
+            raise NotImplementedError(
+                "ecs_file is not ported to echopype_torch yet (ROADMAP Queue 1 item 11); "
+                "use echopype_tpu"
+            )
         self.echodata = echodata
         # None | dict only (reference calibrate_base.py:35-47)
         if env_params is not None and not isinstance(env_params, dict):
@@ -42,6 +48,19 @@ class CalibrateBase:
         self.cal_params = cal_params or {}
         self.precision = kw.get("precision", "float32")
         self.device = kw.get("device", "cuda")
+        self._range_meter = None
+
+    @property
+    def range_meter(self):
+        """echo_range [C, P, R] float64, computed on first access (the
+        survey streamers derive range from (dr, shift) and never need it)."""
+        if self._range_meter is None:
+            self.compute_echo_range()
+        return self._range_meter
+
+    @range_meter.setter
+    def range_meter(self, value):
+        self._range_meter = value
 
     def _check_echodata_backscatter_size(self, threshold_gib: float = 2.0):
         """Warn when backscatter exceeds the memory-pressure threshold
@@ -94,6 +113,13 @@ class CalibrateBase:
 
 
 class CalibrateEK(CalibrateBase):
+    def compute_echo_range(self):
+        self.range_meter = compute_range_EK(
+            sonar_model=self.echodata.sonar_model,
+            beam=self.beam,
+            env_params=self.env_params,
+        )
+
     def _power_cal_inputs(self, cal_type: str):
         """Assemble the sonar-equation inputs (power, dr, tvg_shift, alpha,
         offset, tau_eff) from resolved env/cal params.  Shared by the
@@ -119,6 +145,8 @@ class CalibrateEK(CalibrateBase):
         # (calibrate_ek.py:112-155); for EK60 all channels are GPT.
         tdn = self._to_cp(beam["transmit_duration_nominal"], n_ch, n_ping)
         tau_eff = np.broadcast_to(tdn[:, :1], (n_ch, n_ping)).copy()
+        if self.sonar_type == "EK80":
+            tau_eff = self._ek80_power_tau_effective(tau_eff, tdn)
 
         gain = self._to_cp(self.cal_params["gain_correction"], n_ch, n_ping)
         pt = self._to_cp(beam["transmit_power"], n_ch, n_ping)
@@ -143,7 +171,7 @@ class CalibrateEK(CalibrateBase):
         return power, dr, shift_cp, alpha_cp, offset, tau_eff
 
     def _cal_power_samples(self, cal_type: str) -> Dataset:
-        """EK60 power-mode calibration via the torch sonar-equation pass."""
+        """EK60/EK80 power-mode calibration via the torch sonar-equation pass."""
         beam = self.beam
         power, dr, shift_cp, alpha_cp, offset, tau_eff = self._power_cal_inputs(cal_type)
         out_vals, echo_range = ek_power_cal(
@@ -175,10 +203,15 @@ class CalibrateEK(CalibrateBase):
         ds = self._add_params_to_output(ds)
         return ds
 
+    def _ek80_power_tau_effective(self, tau_eff, tdn):
+        """Base hook; CalibrateEK80 overrides it with the replica-derived tau
+        of non-GPT channels (calibrate_ek.py:112-151)."""
+        return tau_eff
+
 
 class CalibrateEK60(CalibrateEK):
-    def __init__(self, echodata, env_params=None, cal_params=None, **kw):
-        super().__init__(echodata, env_params, cal_params, **kw)
+    def __init__(self, echodata, env_params=None, cal_params=None, ecs_file=None, **kw):
+        super().__init__(echodata, env_params, cal_params, ecs_file, **kw)
         self.sonar_type = "EK60"
         self.waveform_mode = "CW"
         self.encode_mode = "power"

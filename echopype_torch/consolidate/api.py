@@ -1,9 +1,6 @@
 """consolidate: enrich Sv datasets with depth, location, split-beam angles.
 
-Capability parity: echopype/consolidate/api.py:31-549.  Host-only numpy,
-as in the reference package.  Split-beam angles are ported for CW power
-mode; complex and broadband data raise ``NotImplementedError`` (ROADMAP
-Queue 1 item 6).
+Capability parity: echopype/consolidate/api.py:31-549.
 """
 
 from __future__ import annotations
@@ -232,8 +229,7 @@ def add_splitbeam_angle(
     drop_last_hanning_zero: bool = False,
 ) -> Dataset:
     """Add physical split-beam angles to an Sv dataset
-    (consolidate/api.py:345-549).  CW power mode only; complex and
-    broadband modes raise ``NotImplementedError`` (ROADMAP Queue 1 item 6)."""
+    (consolidate/api.py:345-549)."""
     from ..echodata.simrad import check_input_args_combination, retrieve_correct_beam_group
 
     from ..utils.io import open_source
@@ -265,10 +261,25 @@ def add_splitbeam_angle(
         else:
             raise ValueError(f"source_Sv is missing the required parameter {p_name}.")
 
-    if waveform_mode == "CW" and encode_mode == "power":
-        theta, phi = get_angle_power_samples(ds_beam, angle_params)
-    else:  # complex CW and BB, with or without pulse compression
-        theta, phi = get_angle_complex_samples(ds_beam, angle_params)
+    if waveform_mode == "CW":
+        if encode_mode == "power":
+            theta, phi = get_angle_power_samples(ds_beam, angle_params)
+        else:
+            theta, phi = get_angle_complex_samples(ds_beam, angle_params)
+    else:
+        if pulse_compression:
+            from ..calibrate.ek80_complex import get_filter_coeff
+
+            pc_params = get_filter_coeff(
+                echodata["Vendor_specific"].sel(
+                    channel=list(source_Sv.coords["channel"].values)
+                )
+            )
+            pc_params["receiver_sampling_frequency"] = source_Sv["receiver_sampling_frequency"]
+            pc_params["drop_last_hanning_zero"] = drop_last_hanning_zero
+            theta, phi = get_angle_complex_samples(ds_beam, angle_params, pc_params)
+        else:
+            theta, phi = get_angle_complex_samples(ds_beam, angle_params)
 
     hist = _history("Calculated using data stored in the Beam groups of the echodata object.")
     out = source_Sv.copy()

@@ -2,9 +2,10 @@
 
 Capability parity: echopype/core.py:44-111 — a static dispatch table mapping
 sonar model name to parser/set-groups classes and file-extension validation.
-Only EK60 and ES70 conversion is ported to echopype_torch; the other models
-keep their extension rules and carry no parser (``convert.api.open_raw``
-raises ``NotImplementedError`` for them; ROADMAP Queue 1).
+EK60/ES70 and EK80/ES80/EA640 conversion is ported to echopype_torch; AZFP,
+AZFP6 and AD2CP keep their extension rules and carry no parser
+(``convert.api.open_raw`` raises ``NotImplementedError`` for them; ROADMAP
+Queue 1 item 11).
 """
 
 from pathlib import Path
@@ -42,24 +43,24 @@ SONAR_MODELS = {
     "EK80": {
         "ext": ".raw",
         "xml": False,
-        "parser": None,
-        "set_groups": None,
+        "parser": _lazy(".convert.parse_ek80", "ParseEK80"),
+        "set_groups": _lazy(".convert.set_groups_ek80", "SetGroupsEK80"),
         "accepts_bot": True,
         "accepts_idx": True,
     },
     "ES80": {
         "ext": ".raw",
         "xml": False,
-        "parser": None,
-        "set_groups": None,
+        "parser": _lazy(".convert.parse_ek80", "ParseEK80"),
+        "set_groups": _lazy(".convert.set_groups_ek80", "SetGroupsEK80"),
         "accepts_bot": True,
         "accepts_idx": True,
     },
     "EA640": {
         "ext": ".raw",
         "xml": False,
-        "parser": None,
-        "set_groups": None,
+        "parser": _lazy(".convert.parse_ek80", "ParseEK80"),
+        "set_groups": _lazy(".convert.set_groups_ek80", "SetGroupsEK80"),
         "accepts_bot": True,
         "accepts_idx": True,
     },

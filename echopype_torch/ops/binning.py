@@ -247,18 +247,26 @@ def _sample_bin_sums(er, r_edges, closed: str):
     """Range-bin sums for a grid that varies by ping: a function taking
     [C, P, R] values to [C, P, n_r].
 
-    Each sample adds into its own bin (a scatter-add by its bin id), so a
-    quiet bin after loud samples keeps its precision, and the samples of a
-    row may come in any order, NaN ranges anywhere.
+    Each sample adds into its own bin (an accumulating ``index_put_`` by
+    its (channel, ping, bin) id), so a quiet bin after loud samples keeps
+    its precision, and the samples of a row may come in any order, NaN
+    ranges anywhere.  On the card ``index_put_`` sorts the ids and adds
+    each bin's samples in their order, so reruns are bit-identical; the
+    float atomics of ``scatter_add_`` were not (two runs at 5 x 5,000 x
+    4,000 differed, tests/test_torch_kernels_gpu.py).
     """
     n_r = r_edges.shape[0] - 1
     idx = torch.searchsorted(r_edges.to(er.dtype), er.contiguous(),
                              side="right" if closed == "left" else "left") - 1
     ids = torch.where((idx >= 0) & (idx < n_r) & ~torch.isnan(er), idx, n_r)
+    C, P = er.shape[:2]
+    rows = torch.arange(C * P, device=er.device).view(C, P, 1) * (n_r + 1)
+    flat = (rows + ids).reshape(-1)
 
     def reduce(values):
-        out = values.new_zeros(*values.shape[:2], n_r + 1)
-        return out.scatter_add_(2, ids, values)[:, :, :n_r]
+        out = values.new_zeros(C * P * (n_r + 1))
+        out.index_put_((flat,), values.reshape(-1), accumulate=True)
+        return out.view(C, P, n_r + 1)[:, :, :n_r]
 
     return reduce
 

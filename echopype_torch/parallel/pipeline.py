@@ -11,7 +11,7 @@ Counterpart of the single-device parts of
   ``sharded_sv_mvbs_step``: float32 dB power -> Sv and its MVBS in one
   pass, on K3 (with Sv) or K4 (MVBS only) for uniform ``dr``, and the plain
   cores ``sv_mvbs_core`` (per-ping ``dr``) and ``sv_mvbs_core_mxu``.
-  Multi-device meshes wait for ROADMAP Queue 1 item 9.
+  Multi-device meshes wait for ROADMAP Queue 1 item 10.
 
 On the kernels' paths nothing is divided on the device.  The range-bin
 sample bounds and the first valid sample ``k0`` come from the host in float32, refined against
@@ -298,7 +298,7 @@ def _single_device(mesh):
         return
     raise NotImplementedError(
         "echopype_torch runs the survey step on one device (mesh=None); multi-device "
-        "meshes and the (ping, channel, range) step are ROADMAP Queue 1 item 9"
+        "meshes and the (ping, channel, range) step are ROADMAP Queue 1 item 10"
     )
 
 

@@ -11,15 +11,19 @@ Counterpart of ``echopype_tpu/parallel/survey.py``.  Two families:
   row instead of a [C, P, R] operand a chunk (the "grid" route); the
   others take the per-ping route.  No CUDA kernel of the port runs here:
   the bin sums are plain torch (``binned_window_partials*``).
-* Raw EK60 -> MVBS (:func:`run_survey_mvbs_from_raw`), the EK60/ES70
-  power-mode part of the JAX package's streamer: the
-single-pass streamer with a decode-ahead thread (``prefetch=True``, local
-files) and the eager two-pass path.  Per file, calibration parameters
-resolve on the host; each ping chunk ships as int16 to the device, where
-one fused kernel (K1 for per-channel uniform ``dr``, K2 otherwise) returns
-its [C, window, n_r] bin partials.  Sv is never materialized.  Partials
-are read back one chunk late, so the device computes chunk k+1 while the
-host adds chunk k into float64 sums.
+* Raw files -> MVBS (:func:`run_survey_mvbs_from_raw`).  Power mode
+  (EK60/ES70, and the power channels of EK80/ES80/EA640): the single-pass
+  streamer with a decode-ahead thread (``prefetch=True``, local EK60/ES70
+  files) or the eager two-pass path.  Per file, calibration parameters
+  resolve on the host; each ping chunk ships as int16 to the device, where
+  one fused kernel (K1 for per-channel uniform ``dr``, K2 otherwise)
+  returns its [C, window, n_r] bin partials; Sv is never materialized.
+  EK80 complex / broadband channels: either each ping chunk calibrates
+  through ``compute_Sv`` (the matched filter on the device) and its Sv bins
+  on the device, or, with ``device_fused``, one device pass per (channel,
+  chunk) runs pulse compression, Sv and the bins
+  (``ops/bb_pipeline.py``).  Partials are read back one chunk late, so the
+  device computes chunk k+1 while the host adds chunk k into float64 sums.
 
 The host-to-device copies are plain synchronous ``.to(device)``; the two
 int16 staging buffers alternate, so pinned asynchronous copies can replace
@@ -81,19 +85,21 @@ class _PartialAccumulator:
         self.timer = timer
         self._pending = None
 
-    def push(self, *item):
-        """Queue one chunk's ``(*partials, x_base)``; add the chunk before."""
-        prev, self._pending = self._pending, item
+    def push(self, *item, ch=None):
+        """Queue one chunk's ``(*partials, x_base)``; add the chunk before.
+        With ``ch``, the partials are one channel's [window, n_r]."""
+        prev, self._pending = self._pending, (item, ch)
         if prev is not None:
             self._drain(prev)
 
-    def _drain(self, item):
-        *partials, x_base = item
+    def _drain(self, pending):
+        (*partials, x_base), ch = pending
+        rows = slice(None) if ch is None else ch
         with self.timer.stage("accumulate"):
             w_eff = min(self.window, self.n_x - x_base)
             for acc, p in zip(self.parts, partials):
                 p = p.cpu().numpy() if isinstance(p, torch.Tensor) else p
-                acc[:, x_base : x_base + w_eff] += p[:, :w_eff]
+                acc[rows, x_base : x_base + w_eff] += p[..., :w_eff, :]
 
     def finish(self):
         if self._pending is not None:
@@ -113,6 +119,21 @@ def _global_ping_bins(pt_i8, ping_edges_i8, n_x):
     return np.clip(
         np.searchsorted(ping_edges_i8, pt_i8, side="right") - 1, 0, n_x - 1
     ).astype("i4")
+
+
+_EK60_MODELS = ("EK60", "ES70")
+_EK80_MODELS = ("EK80", "ES80", "EA640")
+_UNPORTED_ITEMS = {"mesh": 10, "freq_diff": 7, "noise_masks": 8, "workers": 9}
+
+
+def _refuse_unported(**options):
+    """Raise for a survey option the port does not run yet."""
+    asked = [k for k, v in options.items() if v is not None]
+    if asked:
+        items = ", ".join(f"{k} (item {_UNPORTED_ITEMS[k]})" for k in asked)
+        raise NotImplementedError(
+            f"{items}: not ported to echopype_torch yet (ROADMAP Queue 1); use echopype_tpu"
+        )
 
 
 def _widest_window(x_ids, chunk_pings):
@@ -298,56 +319,72 @@ def run_survey_mvbs_from_raw(
     range_bin_m: float = None,
     device="cuda",
 ):
-    """Stream raw EK60/ES70 files straight into survey-global MVBS bins.
+    """Stream raw EK60/ES70 or EK80/ES80/EA640 files into survey-global MVBS
+    bins.
 
     The arguments are the JAX package's; ``device`` ("cuda" by default,
-    "cpu" for the plain PyTorch path) is where the window step runs.
-    ``prefetch=True`` on local files runs the single-pass streamer (a
+    "cpu" for the plain PyTorch path) is where the device work runs.
+    Power mode (EK60/ES70; EK80-family files without ``waveform_mode`` /
+    ``encode_mode``, whose power channels calibrate as CW power): on local
+    EK60/ES70 files ``prefetch=True`` runs the single-pass streamer (a
     header-only extent scan fixes the bin grids; each file decodes on a
     background thread while the previous one streams); otherwise, or when
     the scan cannot cover the survey, the eager two-pass path runs.  Both
     give the same bins.
+    ``waveform_mode`` / ``encode_mode`` ("BB"|"FM"|"CW", "complex") stream
+    EK80 complex channels: each ping chunk calibrates through compute_Sv
+    (the matched filter on ``device``, the rest host float64) and bins on
+    ``device``; ``device_fused=True`` instead runs pulse compression,
+    received power, Sv and the bins as one device pass per (channel, chunk)
+    (``ops/bb_pipeline.py``, float32 end to end).  Multi-``filter_time``
+    files stream per (channel, filter epoch), as compute_Sv partitions them.
 
-    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): other
-    sonar models (EK80 power/complex, AZFP), ``waveform_mode`` /
-    ``encode_mode`` / ``device_fused`` (complex and broadband), ``mesh``,
-    ``freq_diff``, ``noise_masks`` and ``workers``.
+    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): AZFP /
+    AZFP6 (item 11), ``freq_diff`` (7), ``noise_masks`` (8), ``workers``
+    (9) and ``mesh`` (10).
 
     Returns an MVBS Dataset on the global (ping_time bin, range bin) grid;
     ``attrs["device"]`` names the device and ``attrs["stage_timing"]`` holds
     the host wall time per stage.
     """
-    unported = {
-        "mesh": mesh is not None, "freq_diff": freq_diff is not None,
-        "noise_masks": noise_masks is not None, "workers": bool(workers),
-        "waveform_mode": waveform_mode is not None, "encode_mode": encode_mode is not None,
-        "device_fused": bool(device_fused),
-    }
-    if sonar_model not in ("EK60", "ES70"):
-        if sonar_model in ("EK80", "ES80", "EA640", "AZFP", "AZFP6"):
-            raise NotImplementedError(
-                f"{sonar_model} survey streaming is not ported to echopype_torch yet "
-                "(ROADMAP Queue 1); use echopype_tpu"
-            )
-        raise ValueError(
-            f"run_survey_mvbs_from_raw supports EK60/ES70 power mode, not {sonar_model!r}"
-        )
-    asked = [k for k, v in unported.items() if v]
-    if asked:
+    if sonar_model in ("AZFP", "AZFP6"):
         raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to echopype_torch yet (ROADMAP Queue 1)"
+            f"{sonar_model} survey streaming is not ported to echopype_torch yet "
+            "(ROADMAP Queue 1 item 11); use echopype_tpu"
         )
+    if sonar_model not in _EK60_MODELS + _EK80_MODELS:
+        raise ValueError(
+            "run_survey_mvbs_from_raw supports EK60/ES70 and EK80/ES80/EA640, "
+            f"not {sonar_model!r}"
+        )
+    _refuse_unported(freq_diff=freq_diff, noise_masks=noise_masks, workers=workers or None,
+                     mesh=mesh)
+    complex_mode = encode_mode == "complex" or waveform_mode in ("BB", "FM")
+    if sonar_model in _EK60_MODELS and complex_mode:
+        raise ValueError("EK60-style data can only be streamed in CW power mode")
     dev = resolve_device(device)
     range_bin_m = _resolve_bin_m(range_bin, range_bin_m)
     timer = timer or StageTimer()
     raw_files = list(raw_files)
     if not raw_files:
         raise ValueError("no raw files provided")
+    if complex_mode:
+        return _run_survey_mvbs_complex(
+            raw_files, sonar_model, waveform_mode, encode_mode, range_bin_m, ping_time_bin,
+            chunk_pings, env_params, cal_params, use_swap, xml_path, timer, device_fused, dev,
+        )
 
-    def make_cal(ed):
-        return CalibrateEK60(ed, env_params, cal_params)
+    if sonar_model in _EK60_MODELS:
+        def make_cal(ed):
+            return CalibrateEK60(ed, env_params, cal_params)
+    else:
+        from ..calibrate.ek80 import CalibrateEK80
 
-    if prefetch:
+        def make_cal(ed):
+            return CalibrateEK80(ed, env_params, cal_params, waveform_mode="CW",
+                                 encode_mode="power")
+
+    if prefetch and sonar_model in _EK60_MODELS:
         try:
             return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
                                  chunk_pings, env_params, use_swap, xml_path, timer,
@@ -511,18 +548,247 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
                      range_edges[: n_r_true + 1][:-1], timer, dev)
 
 
+# ------------------------------------------- EK80 complex channels -> MVBS
+def _slice_echodata_pings(ed, beam_path, sl):
+    """Shallow EchoData whose beam group is ping-sliced (chunked calibration)."""
+    from ..echodata.echodata import EchoData
+
+    tree = dict(ed._tree)
+    tree[beam_path] = tree[beam_path].isel(ping_time=sl)
+    return EchoData(tree=tree, source_file=ed.source_file, sonar_model=ed.sonar_model)
+
+
+def _n_filter_times(ed):
+    vend = ed["Vendor_specific"]
+    return vend.sizes["filter_time"] if "filter_time" in vend.sizes else 1
+
+
+def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode, range_bin_m,
+                             ping_time_bin, chunk_pings, env_params, cal_params, use_swap,
+                             xml_path, timer, device_fused, dev):
+    """EK80 complex / broadband raw -> MVBS.
+
+    Per chunk of pings the beam group is ping-sliced and ``compute_Sv`` runs
+    the complex calibration (float32 matched filter on ``dev``, the rest in
+    host float64); membership of the chunk's echo_range resolves on the
+    host in float64 and ships encoded, and the bins sum on ``dev``.
+    Multi-``filter_time`` files stream per (channel, filter epoch) work unit
+    (``calibrate.api.epoch_slice_dicts``): resolving epochs per chunk would
+    apply the wrong filters to a chunk without its epoch's timestamp.
+    ``device_fused`` hands over to :func:`_run_complex_fused`.
+    """
+    from ..calibrate.api import compute_Sv, epoch_slice_dicts
+    from ..echodata.simrad import retrieve_correct_beam_group
+
+    sv_kw = dict(env_params=env_params, cal_params=cal_params, waveform_mode=waveform_mode,
+                 encode_mode=encode_mode, precision="float32", device=dev)
+    eds, beam_paths, ping_times = [], [], []
+    with timer.stage("ingest"):
+        for f in raw_files:
+            ed = open_raw(f, sonar_model=sonar_model, use_swap=use_swap, xml_path=xml_path)
+            bp = retrieve_correct_beam_group(ed, waveform_mode, encode_mode)
+            eds.append(ed)
+            beam_paths.append(bp)
+            ping_times.append(np.asarray(ed[bp].coords["ping_time"].values,
+                                         dtype="datetime64[ns]"))
+    chans = list(eds[0][beam_paths[0]].coords["channel"].values)
+    for ed, bp in zip(eds[1:], beam_paths[1:]):
+        if list(ed[bp].coords["channel"].values) != chans:
+            raise ValueError("all raw files must share the same channels")
+    t_min = min(pt.min() for pt in ping_times)
+    t_max = max(pt.max() for pt in ping_times)
+    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
+                                     ping_time_bin)
+    n_x = len(ping_edges) - 1
+    if device_fused:
+        return _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pings,
+                                  sv_kw, timer, dev)
+
+    # global range extent: calibrate one probe ping per file, scaled by the
+    # file's worst sample-interval ratio
+    r_max = 0.0
+    with timer.stage("range_probe"):
+        for ed, bp in zip(eds, beam_paths):
+            probe = compute_Sv(_slice_echodata_pings(ed, bp, slice(0, 1)), **sv_kw)
+            er1 = np.asarray(probe["echo_range"].values, dtype="f8")  # [C, 1, R]
+            si = np.asarray(ed[bp]["sample_interval"].values, dtype="f8")
+            ratio = np.nanmax(np.nanmax(si, axis=-1) / np.maximum(si[..., 0], 1e-30))
+            r_max = max(r_max, float(np.nanmax(er1[:, 0, -1]) * max(ratio, 1.0)))
+    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
+    n_r = len(range_edges) - 1
+    edges_i8 = ping_edges.astype("i8")
+
+    x_ids, epoch_plans = [], []
+    for ed, bp, pt in zip(eds, beam_paths, ping_times):
+        if _n_filter_times(ed) > 1:
+            plan = []
+            for sd in epoch_slice_dicts(ed[bp], ed["Vendor_specific"]):
+                keep = pt >= np.datetime64(sd["beam_group_start_time"], "ns")
+                if sd["beam_group_end_time"] is not None:
+                    keep &= pt <= np.datetime64(sd["beam_group_end_time"], "ns")
+                idxs = np.nonzero(keep)[0]
+                if len(idxs):
+                    plan.append((sd, idxs, _global_ping_bins(pt[idxs].astype("i8"), edges_i8,
+                                                             n_x)))
+            epoch_plans.append(plan)
+            x_ids.extend(x for _, _, x in plan)
+        else:
+            epoch_plans.append(_global_ping_bins(pt.astype("i8"), edges_i8, n_x))
+            x_ids.append(epoch_plans[-1])
+    window = _widest_window(x_ids, chunk_pings)
+    # complex-channel echo_range is affine in the sample index: ping-invariant
+    # wherever the file's sample interval is
+    uniform = all(
+        bool(np.all(si == si[..., :1]))
+        for si in (np.asarray(ed[bp]["sample_interval"].values, dtype="f8")
+                   for ed, bp in zip(eds, beam_paths))
+    )
+    acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
+    ch_pos = {str(c): i for i, c in enumerate(chans)}
+    enc_edges = binning._to_dev(np.arange(n_r + 1), dev)
+
+    def bin_chunk(ds, x_rel):
+        """Bin one calibrated chunk: membership on the host in float64,
+        sums on the device."""
+        sv = np.asarray(ds["Sv"].values, dtype="f4")
+        er = np.asarray(ds["echo_range"].values, dtype="f8")
+        er = binning.exact_bin_encode_np(np.broadcast_to(er, sv.shape), range_edges)[0]
+        s, c, _ = binning.binned_window_partials(
+            binning._to_dev(sv, dev), binning._to_dev(er, dev), enc_edges,
+            binning._to_dev(x_rel, dev, "i4"), window, uniform_er=uniform)
+        return s, c
+
+    for ed, bp, plan in zip(eds, beam_paths, epoch_plans):
+        if isinstance(plan, list):
+            _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos, bin_chunk,
+                                   timer)
+            continue
+        for lo in range(0, len(plan), chunk_pings):
+            hi = min(lo + chunk_pings, len(plan))
+            x_base = int(plan[lo])
+            with timer.stage("chunk_calibrate"):
+                ds = compute_Sv(_slice_echodata_pings(ed, bp, slice(lo, hi)), **sv_kw)
+            with timer.stage("device_binning"):
+                s, c = bin_chunk(ds, plan[lo:hi] - x_base)
+            acc.push(s, c, x_base)
+    sums, counts = acc.finish()
+    return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
+
+
+def _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos, bin_chunk, timer):
+    """Chunk-stream one multi-``filter_time`` file per (channel, epoch)
+    work unit: each chunk calibrates through CalibrateEK80's slice_dict (one
+    channel, one filter set, the chunk's ping range), so the filter epoch is
+    the one governing those pings wherever the chunks fall."""
+    from ..calibrate.ek80 import CalibrateEK80
+
+    pt_all = np.asarray(ed[bp].coords["ping_time"].values, dtype="datetime64[ns]")
+    for sd, idxs, x_idx_all in plan:
+        ci = ch_pos[sd["channel"]]
+        for lo in range(0, len(idxs), chunk_pings):
+            hi = min(lo + chunk_pings, len(idxs))
+            x_base = int(x_idx_all[lo])
+            sd_chunk = dict(sd, beam_group_start_time=pt_all[idxs[lo]],
+                            beam_group_end_time=pt_all[idxs[hi - 1]])
+            with timer.stage("chunk_calibrate"):
+                ds = CalibrateEK80(
+                    ed, sv_kw["env_params"], sv_kw["cal_params"],
+                    waveform_mode=sv_kw["waveform_mode"], encode_mode=sv_kw["encode_mode"],
+                    precision=sv_kw["precision"], device=sv_kw["device"], slice_dict=sd_chunk,
+                ).compute_Sv()
+            with timer.stage("device_binning"):
+                s, c = bin_chunk(ds, x_idx_all[lo:hi] - x_base)
+            acc.push(s[0], c[0], x_base, ch=ci)
+
+
+def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pings, sv_kw,
+                       timer, dev):
+    """Fused complex-channel streaming: one device pass per (channel, chunk)
+    does pulse compression, received power, Sv and the window bins
+    (``ops/bb_pipeline.bb_chunk_window_partials``), float32 end to end.
+
+    Calibration resolves per file, or per (channel, filter epoch) for
+    multi-``filter_time`` files with the chunked path's partition: each
+    work item owns one parameter set and one replica per channel.
+    """
+    from ..calibrate.api import epoch_slice_dicts
+    from ..calibrate.ek80 import CalibrateEK80
+    from ..calibrate.ek80_complex import get_norm_fac
+    from ..ops.bb_pipeline import bb_chunk_window_partials
+
+    waveform_mode = sv_kw["waveform_mode"]
+    do_pc = waveform_mode in ("BB", "FM")
+    n_x = len(ping_edges) - 1
+    cals, scals, r_max = [], [], 0.0
+    with timer.stage("param_resolution"):
+        for ed, bp in zip(eds, beam_paths):
+            slice_dicts = (epoch_slice_dicts(ed[bp], ed["Vendor_specific"])
+                           if _n_filter_times(ed) > 1 else [{}])
+            for sd in slice_dicts:
+                cal = CalibrateEK80(ed, sv_kw["env_params"], sv_kw["cal_params"],
+                                    waveform_mode=waveform_mode,
+                                    encode_mode=sv_kw["encode_mode"], slice_dict=sd)
+                if cal.beam.sizes["ping_time"] == 0:
+                    continue
+                scal = cal._complex_sv_scalars()
+                cals.append(cal)
+                scals.append(scal)
+                # the last sample sits at (R - 1) * dr
+                r_max = max(r_max, float(np.nanmax(scal["dr"])) * (cal.beam.sizes["range_sample"]
+                                                                   - 1))
+    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
+    r_edges_f4 = range_edges.astype("f4")
+    edges_i8 = ping_edges.astype("i8")
+    x_ids = [_global_ping_bins(np.asarray(cal.beam.coords["ping_time"].values,
+                                          dtype="datetime64[ns]").astype("i8"), edges_i8, n_x)
+             for cal in cals]
+    window = _widest_window(x_ids, chunk_pings)
+    acc = _PartialAccumulator(len(chans), n_x, len(range_edges) - 1, window, timer)
+    ch_pos = {str(c): i for i, c in enumerate(chans)}
+
+    for cal, scal, x_idx_all in zip(cals, scals, x_ids):
+        with timer.stage("param_resolution"):
+            beam = cal.beam
+            n_ch, n_ping = beam.sizes["channel"], beam.sizes["ping_time"]
+            n_beam = beam.sizes.get("beam", 1)
+            # per-ping impedance coefficient of prx (calibrate_ek.py:456-505)
+            z_er = cal._to_cp(scal["z_er"], n_ch, n_ping)
+            z_et = cal._to_cp(scal["z_et"], n_ch, n_ping)
+            z_coef = (n_beam / 8.0 * (np.abs(z_er + z_et) / z_er) ** 2 / z_et).astype("f4")
+            norm = get_norm_fac(scal["tx"])
+            ch_ids = [str(c) for c in beam.coords["channel"].values]
+            bs_r_all = np.asarray(beam["backscatter_r"].values, dtype="f4")
+            bs_i_all = np.asarray(beam["backscatter_i"].values, dtype="f4")
+            if bs_r_all.ndim == 3:  # no beam dim: one sector
+                bs_r_all, bs_i_all = bs_r_all[..., None], bs_i_all[..., None]
+            valid_len = (~np.isnan(bs_r_all[..., 0])).sum(axis=2).astype("i4")
+            dr, shift, alpha, offset = (scal[k].astype("f4")
+                                        for k in ("dr", "shift", "alpha", "offset"))
+            # the first sample with r_tvg > 0, decided in float64 (the
+            # chunked path's boundary sample)
+            k0 = np.maximum(np.floor(scal["shift"] / np.maximum(scal["dr"], 1e-30)) + 1,
+                            0).astype("i4")
+            uniform_er = bool(np.all(dr == dr[:, :1]))
+        for ci, cid in enumerate(ch_ids):
+            rep = np.flipud(np.conj(np.asarray(scal["tx"][cid])))
+            hr, hi = (np.ascontiguousarray(a, dtype="f4") for a in (rep.real, rep.imag))
+            inv_norm = np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0
+            for lo in range(0, n_ping, chunk_pings):
+                sl = slice(lo, min(lo + chunk_pings, n_ping))
+                x_base = int(x_idx_all[lo])
+                with timer.stage("device_fused"):
+                    s, c = bb_chunk_window_partials(
+                        bs_r_all[ci, sl], bs_i_all[ci, sl], hr, hi, inv_norm, z_coef[ci, sl],
+                        dr[ci, sl], shift[ci, sl], alpha[ci, sl], offset[ci, sl], k0[ci, sl],
+                        valid_len[ci, sl], x_idx_all[sl] - x_base, r_edges_f4, window, do_pc,
+                        uniform_er=uniform_er, device=dev,
+                    )
+                acc.push(s, c, x_base, ch=ch_pos[cid])
+    sums, counts = acc.finish()
+    return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
+
+
 # ------------------------------------------------------- Sv stores -> grids
-_UNPORTED_ITEMS = {"mesh": 9, "freq_diff": 7, "noise_masks": 8}
-
-
-def _refuse_unported(**options):
-    """Raise for a survey option the port does not run yet."""
-    asked = [k for k, v in options.items() if v is not None]
-    if asked:
-        items = ", ".join(f"{k} (item {_UNPORTED_ITEMS[k]})" for k in asked)
-        raise NotImplementedError(
-            f"{items}: not ported to echopype_torch yet (ROADMAP Queue 1); use echopype_tpu"
-        )
 
 
 def _sv_providers(sv_sources, reopen):
@@ -592,7 +858,7 @@ def run_survey_mvbs(
     the host's float64 membership gives it (``binned_window_partials``; the
     JAX package's prefix sums there lose quiet bins).
     Not ported yet (``NotImplementedError``): ``mesh``, ``freq_diff``,
-    ``noise_masks`` (ROADMAP Queue 1 items 9, 7, 8).
+    ``noise_masks`` (ROADMAP Queue 1 items 10, 7, 8).
 
     Returns an MVBS Dataset on the union (ping_time bin, range bin) grid;
     ``attrs`` carry ``device``, ``routes`` (one per source, "grid" or
@@ -714,7 +980,7 @@ def run_survey_nasc(
     depth row, and the height sums as that row times each bin's ping
     count); the others the per-ping route, as in :func:`run_survey_mvbs`.
     Not ported yet (``NotImplementedError``): ``mesh``, ``noise_masks``
-    (ROADMAP Queue 1 items 9, 8).  ``attrs`` carry ``device`` and
+    (ROADMAP Queue 1 items 10, 8).  ``attrs`` carry ``device`` and
     ``routes`` as in :func:`run_survey_mvbs`.
     """
     _refuse_unported(mesh=mesh, noise_masks=noise_masks)

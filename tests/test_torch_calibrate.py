@@ -102,15 +102,15 @@ def test_invalid_modes_raise(ek60_files):
         et.calibrate.compute_Sv(ed, env_params=[1], device="cpu")
 
 
-@pytest.mark.parametrize("case", ["EK80", "ecs_file"])
+@pytest.mark.parametrize("case", ["AZFP", "AZFP6", "ecs_file"])
 def test_unported_inputs_raise(ek60_files, case):
     ed = et.open_raw(ek60_files["plain"], sonar_model="EK60")
     kw = {}
-    if case == "EK80":
-        ed.sonar_model = "EK80"
-    else:
+    if case == "ecs_file":
         kw["ecs_file"] = "calibration.ecs"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    else:
+        ed.sonar_model = case
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
         et.calibrate.compute_Sv(ed, device="cpu", **kw)
 
 

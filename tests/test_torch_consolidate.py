@@ -273,13 +273,19 @@ class TestSplitbeamAngle:
             et.consolidate.add_splitbeam_angle(mvbs, ted, waveform_mode="CW",
                                                encode_mode="power")
 
-    def test_complex_mode_not_ported(self, pipelines):
-        ted, _, ds_t, _ = pipelines["plain"]
-        with pytest.raises(NotImplementedError, match="item 6"):
-            et.consolidate.add_splitbeam_angle(self._with_params(ds_t, ted), ted,
-                                               waveform_mode="CW", encode_mode="complex")
-        with pytest.raises(NotImplementedError, match="item 6"):
-            et.consolidate.split_beam_angle.get_angle_complex_samples(None, {})
+    def test_complex_beam_types_raise_as_jax(self):
+        """EC150-3C (beam type 97) is not supported and an unknown beam
+        type is an error, in both packages (complex mode leaves such a
+        channel's angles NaN)."""
+        from echopype_torch.consolidate import split_beam_angle as tsba
+        from echopype_tpu.consolidate import split_beam_angle as jsba
+
+        bs = np.ones((2, 5, 4), dtype="c16")
+        for mod in (tsba, jsba):
+            with pytest.raises(NotImplementedError, match="EC150"):
+                mod._angles_from_complex(bs, 97)
+            with pytest.raises(ValueError, match="beam_type"):
+                mod._angles_from_complex(bs, 5)
 
     def test_ek80_mode_checks(self):
         from echopype_torch.echodata import simrad as ts
@@ -293,6 +299,41 @@ class TestSplitbeamAngle:
             for mod in (ts, js):
                 with pytest.raises(ValueError):
                     mod.check_input_args_combination(*args)
+
+
+class TestSplitbeamComplex:
+    """Complex-mode split-beam angles on EK80 files (tests/synth_ek80.py):
+    CW complex and BB, BB with and without pulse compression (the replica
+    through the port's float64 matched filter), 3-sector and 3+center
+    transducers; the port's angles equal the JAX package's bit for bit on
+    the same Sv arrays."""
+
+    @pytest.fixture(scope="class")
+    def ek80(self, tmp_path_factory):
+        from synth_ek80 import write_ek80_multisector, write_ek80_raw
+
+        d = tmp_path_factory.mktemp("splitbeam_ek80")
+        out = {"default": d / "E80-D20210201-T000000.raw"}
+        write_ek80_raw(out["default"], n_pings=5, n_samples=128)
+        for bt in (17, 49):
+            out[bt] = d / f"MS{bt}-D20210201-T000000.raw"
+            write_ek80_multisector(out[bt], beam_type=bt)
+        return {k: (et.open_raw(v, sonar_model="EK80"), ep.open_raw(v, sonar_model="EK80"))
+                for k, v in out.items()}
+
+    @pytest.mark.parametrize("file, waveform_mode, pulse_compression", [
+        ("default", "BB", False), ("default", "BB", True), ("default", "CW", False),
+        (17, "CW", False), (49, "CW", False)])
+    def test_matches_jax(self, ek80, file, waveform_mode, pulse_compression):
+        ted, jed = ek80[file]
+        ds_t = et.calibrate.compute_Sv(ted, waveform_mode=waveform_mode, encode_mode="complex",
+                                       precision="float64", device="cpu")
+        kw = dict(waveform_mode=waveform_mode, encode_mode="complex",
+                  pulse_compression=pulse_compression, to_disk=False)
+        got = et.consolidate.add_splitbeam_angle(ds_t, ted, **kw)
+        want = ep.consolidate.add_splitbeam_angle(as_package(ds_t, JDataset), jed, **kw)
+        assert_same_dataset(got, want)
+        assert np.isfinite(got["angle_alongship"].values).any()
 
 
 # ---------------------------------------------------------- the whole slice

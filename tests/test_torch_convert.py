@@ -99,14 +99,36 @@ class TestOpenRaw:
         want = ep.open_raw(raw_files["plain"], sonar_model="ES70")
         assert_same_tree(got, want)
 
-    @pytest.mark.parametrize("model", ["EK80", "AZFP6", "AD2CP"])
+    @pytest.mark.parametrize("model", ["AZFP", "AZFP6", "AD2CP"])
     def test_unported_models_raise(self, raw_files, model):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
             et.open_raw(raw_files["plain"], sonar_model=model)
 
     def test_unknown_model_raises(self, raw_files):
         with pytest.raises(ValueError, match="Unsupported sonar_model"):
             et.open_raw(raw_files["plain"], sonar_model="EK99")
+
+
+class TestEK60Dropout:
+    """The dropout file of tests/test_ref_setgroups.py::TestEK60DropoutParity:
+    channel 1 (1-based: the first) skips pings 2 and 5, so at those pings of
+    the union grid ``data_type`` and ``channel_mode`` have no value.  The
+    port's copy of set_groups_ek60 gives the JAX package's answer: float64,
+    NaN at exactly those two (channel, ping) cells, the recorded values
+    elsewhere."""
+
+    def test_data_type_and_channel_mode_match_jax(self, tmp_path):
+        raw = tmp_path / "DO-D20200101-T000000.raw"
+        write_ek60_raw(raw, n_pings=9, n_samples=30, with_nmea=False, jitter_raw0=True,
+                       jitter_config=True, skip_pings={1: {2, 5}})
+        got = et.open_raw(str(raw), sonar_model="EK60")["Sonar/Beam_group1"]
+        want = ep.open_raw(str(raw), sonar_model="EK60")["Sonar/Beam_group1"]
+        for var in ("data_type", "channel_mode"):
+            g, w = np.asarray(got[var].values), np.asarray(want[var].values)
+            assert g.dtype == w.dtype == np.float64, var
+            nan_at = sorted(zip(*np.nonzero(np.isnan(g))))
+            assert nan_at == [(0, 2), (0, 5)], var
+            np.testing.assert_array_equal(_bits(g), _bits(w), err_msg=var)
 
 
 class TestNativeScan:

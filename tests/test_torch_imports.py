@@ -5,7 +5,9 @@ from a ``sys.meta_path`` finder, imports echopype_torch and runs the
 raw->MVBS survey, ``open_raw`` -> ``compute_Sv`` -> ``compute_MVBS`` /
 ``compute_MVBS_index_binning``, the fused survey step, and
 ``consolidate.add_location`` / ``add_depth`` -> ``run_survey_mvbs`` /
-``run_survey_nasc`` on the CPU; none of the four may be loaded afterwards.
+``run_survey_nasc``, and EK80: ``open_raw`` -> BB ``compute_Sv`` and the
+fused BB survey (``device_fused=True``), on the CPU; none of the four may
+be loaded afterwards.
 An AST scan holds the package's sources and ``chip_smoke.py`` to the same
 rule, including imports inside functions.
 """
@@ -69,6 +71,17 @@ _SCRIPT = textwrap.dedent(
     nasc = et.run_survey_nasc([sv], range_bin="5m", dist_bin="1nmi", device="cpu")
     assert survey.attrs["routes"] == nasc.attrs["routes"] == ["per_ping"]
     assert np.isfinite(survey["Sv"].values).any() and np.isfinite(nasc["NASC"].values).any()
+    from synth_ek80 import write_ek80_raw
+
+    ek80 = path.replace(".raw", "-ek80.raw")
+    write_ek80_raw(ek80, n_pings=6, n_samples=96, with_power_channel=False,
+                   with_cw_complex=False)
+    ed80 = et.open_raw(ek80, sonar_model="EK80")
+    bb = et.calibrate.compute_Sv(ed80, waveform_mode="BB", encode_mode="complex", device="cpu")
+    fused = et.run_survey_mvbs_from_raw([ek80], sonar_model="EK80", waveform_mode="BB",
+                                        encode_mode="complex", device_fused=True,
+                                        range_bin="0.2m", ping_time_bin="2s", device="cpu")
+    assert np.isfinite(bb["Sv"].values).any() and np.isfinite(fused["Sv"].values).any()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("LOADED", loaded)
     """

@@ -28,7 +28,13 @@ The Sv-store streamers' plain-torch binning (``binned_window_partials_grid``,
 ``binned_window_row_sum``, and the per-ping route's per-sample scatter-add
 in ``binned_window_partials`` / ``binned_window_sum_raw``) runs
 on the card against ``device="cpu"`` at a full-width chunk, 5 x 5,000 x
-4,000 float32: counts exact, sums within rtol 1e-5.
+4,000 float32: counts exact, sums within rtol 1e-5; the per-ping route run
+twice on such a chunk is bit-identical.
+
+EK80: the matched filter (``ops/matched_filter.py``) on the card at 2,000
+pings x 4 sectors x 8,192 samples against the host float64 convolution,
+with TF32 off inside its matmul (float32 and float64 products); the fused BB chunk
+(``ops/bb_pipeline.py``) run twice bit-identical and against the CPU.
 """
 
 import numpy as np
@@ -351,3 +357,128 @@ def test_rows_binning_card_equals_cpu(cuda):
     h_args = (ddep, enc[:, :, :-1], enc_edges, x_rel)
     _close([tb.binned_window_sum_raw(*_to(cuda, *h_args), n_x)],
            [tb.binned_window_sum_raw(*_to("cpu", *h_args), n_x)])
+
+
+def test_per_ping_route_rerun_bit_identical(cuda):
+    """The per-ping route (``binned_window_partials`` without ``uniform_er``:
+    each sample added into its own bin) run twice on one full-width chunk,
+    5 x 5,000 x 4,000 float32 on a ping-varying grid: sums and counts
+    bit-identical."""
+    sv, er, edges, x_rel, n_x = _sv_chunk(13, vary=True)
+    enc, enc_edges = tb.exact_bin_encode_np(er, edges)[:2]
+    args = _to(cuda, sv, enc, enc_edges, x_rel)
+    first = tb.binned_window_partials(*args, n_x)
+    second = tb.binned_window_partials(*args, n_x)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(_bits(a), _bits(b)), "per-ping route rerun not bit-identical"
+    assert (first[1] > 0).any()
+
+
+# ---------------------------------------------------------------- EK80 / BB
+def _bb_replica():
+    """The synthetic BB channel's transmit replica (tests/synth_ek80.py:
+    50-90 kHz, 1.024 ms, fs 1.5 MHz, its WBT and PC filters)."""
+    from echopype_torch.calibrate import ek80_complex as ekc
+
+    y, _ = ekc.tapered_chirp(1500000, 1.024e-3, 0.0078125, 50000.0, 90000.0)
+    coeff = {"wbt_fil": np.full(4, 0.25, dtype="c8"), "pc_fil": np.full(2, 0.5, dtype="c8"),
+             "wbt_decifac": 6, "pc_decifac": 1}
+    return ekc.filter_decimate_chirp(coeff, y, 1500000.0)[0]
+
+
+def _bb_samples(seed, P, R=8192, B=4):
+    rng = np.random.default_rng(seed)
+    bs = (rng.normal(0, 1e-3, (P, R, B)) + 1j * rng.normal(0, 1e-3, (P, R, B))).astype("c8")
+    bs[::97, R - 300:, :] = np.nan  # some ragged pings
+    return bs
+
+
+def test_matched_filter_card_vs_host_f64(cuda):
+    """2,000 pings x 4 sectors x 8,192 samples, L from the synthetic BB
+    channel, on the card (float32 samples, float64 product); every 125th
+    ping's lanes held to the host float64 convolution (max |error| / max
+    |exact| < 1e-12) and to the same product on the CPU; NaN samples
+    restored, the structural-zero tail 0."""
+    from echopype_torch.ops import matched_filter as mf
+
+    rep = _bb_replica()
+    bs = _bb_samples(17, 2000)
+    mf.reset_launches()
+    got = mf.pulse_compress_channel(bs, rep, precision="float32", device=cuda)
+    assert mf.LAUNCHES["toeplitz_matmul"] == 1
+    pick = (slice(None, None, 125), slice(None), slice(None))  # 16 pings x 4 sectors
+    want = mf.pulse_compress_channel(bs[pick], rep, precision="float64")
+    cpu = mf.pulse_compress_channel(bs[pick], rep, precision="float32", device="cpu")
+    np.testing.assert_array_equal(np.isnan(got[pick]), np.isnan(want))
+    ok = ~np.isnan(want)
+    scale = np.abs(want[ok]).max()
+    assert np.abs(got[pick][ok] - want[ok]).max() / scale < 1e-12
+    assert np.abs(got[pick][ok] - cpu[ok]).max() / scale < 1e-12
+    z = mf._leading_zeros(rep)
+    tail = got[:, -z:][~np.isnan(got[:, -z:])] if z else np.zeros(1)
+    assert np.all(tail == 0)
+
+
+def test_tf32_off_inside_the_card_matmul(cuda, monkeypatch):
+    """The card's matmul runs with TF32 off, at the float32 matmul precision
+    "highest" (the port's entry points switch TF32 off, ``device.py``); a
+    caller's TF32 setting comes back after the product itself."""
+    from echopype_torch.ops import matched_filter as mf
+
+    seen = []
+    real = torch.matmul
+
+    def spy(*a, **k):
+        seen.append((a[0].is_cuda, torch.backends.cuda.matmul.allow_tf32,
+                     torch.get_float32_matmul_precision()))
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch, "matmul", spy)
+    mf.pulse_compress_channel(_bb_samples(3, 8, R=1000), _bb_replica(), precision="float32",
+                              device=cuda)
+    assert seen == [(True, False, "highest")]
+    x = torch.randn(16, 1000, device=cuda)
+    h = torch.randn(40, device=cuda)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        mf._toeplitz_conv(x, x, h, h, 39, 1000)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert seen[1][:2] == (True, False)
+
+
+@pytest.mark.parametrize("uniform_er", [True, False])
+def test_fused_bb_chunk_rerun_bit_identical(cuda, uniform_er):
+    """``bb_chunk_window_partials`` on one channel's chunk of 1,000 pings x
+    8,192 samples x 4 sectors, twice on the card: bit-identical; and within
+    rtol 1e-4 of the CPU (counts exact)."""
+    from echopype_torch.ops.bb_pipeline import bb_chunk_window_partials
+
+    P, R = 1000, 8192
+    bs = _bb_samples(5, P, R)
+    rep = np.flipud(np.conj(_bb_replica()))
+    rng = np.random.default_rng(6)
+    dr = np.full(P, 16e-6 * 1480 / 2, "f4")
+    if not uniform_er:
+        dr = (dr * rng.uniform(0.99, 1.01, P)).astype("f4")
+    shift = np.full(P, 1480 * 1.024e-3 / 4, "f4")
+    k0 = np.maximum(np.floor(shift.astype("f8") / dr) + 1, 0).astype("i4")
+    vl = (~np.isnan(bs.real[..., 0])).sum(axis=1).astype("i4")
+    x_rel = (np.arange(P) // 20).astype("i4")
+    r_edges = np.arange(0, R * 0.012 + 5.0, 5.0).astype("f4")
+    args = (np.ascontiguousarray(bs.real), np.ascontiguousarray(bs.imag),
+            np.ascontiguousarray(rep.real, "f4"), np.ascontiguousarray(rep.imag, "f4"),
+            np.float32(1e-2), np.full(P, 0.13, "f4"), dr, shift, np.full(P, 0.02, "f4"),
+            np.full(P, -20.0, "f4"), k0, vl, x_rel, r_edges, 50, True)
+    a = bb_chunk_window_partials(*args, uniform_er=uniform_er, device=cuda)
+    b = bb_chunk_window_partials(*args, uniform_er=uniform_er, device=cuda)
+    torch.cuda.synchronize()
+    for g, h in zip(a, b):
+        assert torch.equal(_bits(g), _bits(h)), "fused BB chunk rerun not bit-identical"
+    s_c, c_c = bb_chunk_window_partials(*args, uniform_er=uniform_er, device="cpu")
+    np.testing.assert_array_equal(a[1].cpu().numpy(), c_c.numpy())
+    np.testing.assert_allclose(a[0].cpu().numpy(), s_c.numpy(), rtol=1e-4, atol=1e-30)
+    assert (c_c > 0).any()

@@ -149,9 +149,9 @@ class TestMeshes:
                              ids=["ping_channel", "ping_channel_range"])
     def test_multi_device_meshes_raise(self, kw):
         mesh = make_mesh(**kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             et.survey_pipeline_step(mesh, 8, 5, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
             tp.sharded_sv_mvbs_step(mesh, 8, 5, device="cpu")
 
     def test_cuda_request_without_cuda_raises(self):

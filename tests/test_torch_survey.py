@@ -119,21 +119,28 @@ def test_corrupt_file_falls_back_to_eager(raw_files, tmp_path):
 
 
 @pytest.mark.parametrize(
-    "kw",
-    [dict(mesh=object()), dict(freq_diff="38kHz - 18kHz > 3dB"), dict(workers=2),
-     dict(noise_masks={"impulse": {}}), dict(waveform_mode="BB", encode_mode="complex"),
-     dict(device_fused=True), dict(sonar_model="EK80"), dict(sonar_model="AZFP")],
-    ids=["mesh", "freq_diff", "workers", "noise_masks", "complex", "device_fused", "ek80",
-         "azfp"],
+    "kw, item",
+    [(dict(mesh=object()), 10), (dict(freq_diff="38kHz - 18kHz > 3dB"), 7),
+     (dict(workers=2), 9), (dict(noise_masks={"impulse": {}}), 8),
+     (dict(sonar_model="EK80", waveform_mode="BB", encode_mode="complex",
+           freq_diff="70kHz - 120kHz > 3dB"), 7),
+     (dict(sonar_model="EK80", device_fused=True, mesh=object()), 10),
+     (dict(sonar_model="ES80", noise_masks={"transient": {}}), 8),
+     (dict(sonar_model="AZFP"), 11), (dict(sonar_model="AZFP6"), 11)],
+    ids=["mesh", "freq_diff", "workers", "noise_masks", "complex_freq_diff",
+         "device_fused_mesh", "es80_noise_masks", "azfp", "azfp6"],
 )
-def test_unported_options_raise(raw_files, kw):
-    with pytest.raises(NotImplementedError):
+def test_unported_options_raise(raw_files, kw, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
         et.run_survey_mvbs_from_raw([raw_files["ragged"]], device="cpu", **kw)
 
 
 def test_unknown_model_and_empty_input(raw_files):
     with pytest.raises(ValueError):
         et.run_survey_mvbs_from_raw([raw_files["ragged"]], sonar_model="AD2CP", device="cpu")
+    with pytest.raises(ValueError, match="CW power"):
+        et.run_survey_mvbs_from_raw([raw_files["ragged"]], waveform_mode="BB",
+                                    encode_mode="complex", device="cpu")
     with pytest.raises(ValueError, match="no raw files"):
         et.run_survey_mvbs_from_raw([], device="cpu")
 

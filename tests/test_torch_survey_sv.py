@@ -443,7 +443,7 @@ class TestRunSurveyMVBS:
         assert ts._sv_providers([ek60_sv[0][1]], None)[1] is True
         assert ts._sv_providers([ek60_sv[0][1], ds], None)[1] is False
 
-    @pytest.mark.parametrize("option, item", [("mesh", "item 9"), ("freq_diff", "item 7"),
+    @pytest.mark.parametrize("option, item", [("mesh", "item 10"), ("freq_diff", "item 7"),
                                               ("noise_masks", "item 8")])
     def test_unported_options_raise(self, ek60_sv, option, item):
         with pytest.raises(NotImplementedError, match=item):
@@ -567,7 +567,7 @@ class TestRunSurveyNASC:
         with pytest.raises(ValueError, match="depth"):
             et.run_survey_nasc([ds], device="cpu")
 
-    @pytest.mark.parametrize("option, item", [("mesh", "item 9"), ("noise_masks", "item 8")])
+    @pytest.mark.parametrize("option, item", [("mesh", "item 10"), ("noise_masks", "item 8")])
     def test_unported_options_raise(self, option, item):
         with pytest.raises(NotImplementedError, match=item):
             et.run_survey_nasc([make_sv()], device="cpu", **{option: object()})
