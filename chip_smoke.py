@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive echopype_torch's survey, Sv-grid and EK80 paths once on a CUDA card.
+"""Drive echopype_torch's survey, Sv-grid, masking and EK80 paths once on a CUDA card.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA card (H100), nvcc and PyTorch built for CUDA:
@@ -61,7 +61,28 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    route sums in float64) on the card each equal a host float64 numpy
    bincount of C's Sv (1e-4 dB, identical NaN masks); stage seconds of every
    run;
-10. EK80 (``ek80``): two files of tests/synth_ek80.py (70 kHz FM, 120 kHz
+10. masks (``masks``): noise injected into A's and C's stores as
+   tests/test_survey_clean.py does (impulse pings, transient blobs,
+   attenuated runs); ``clean.mask_impulse_noise`` / ``mask_transient_noise``
+   / ``mask_attenuated_signal`` at the JAX package's defaults on all of A on
+   the card (walls, flagged counts > 0, peak memory under 20 GB), then each
+   device program alone (CUDA events, median of 5, against its bound); the
+   three masks on the card twice (bit-identical) and on the CPU over heads
+   of A and C, with pooled and upsampled Sv within 1e-4 dB; masks may differ
+   only where a sample's margin to the threshold is under 1e-4 dB;
+   ``frequency_differencing`` -> ``apply_mask`` on A's card and CPU Sv;
+   ``run_survey_mvbs`` (20 m x 20 s) with ``noise_masks`` and with
+   ``freq_diff`` and ``run_survey_nasc`` (10 m x 0.5 nmi) with
+   ``noise_masks`` over heads of A and C on cuda and cpu (1e-4 dB, NASC rtol
+   1e-5, except bins holding a sample whose mask differs between the runs),
+   and over all of A fused against the composed chain (equal);
+   ``run_survey_mvbs_from_raw`` with ``freq_diff`` over A, B, C (no K1/K2
+   launch, one freq-diff step per chunk; bins over 1e-4 dB only where a
+   sample sits within 1e-4 dB of the criterion) and with ``noise_masks`` on
+   an extra 2,000-ping file; and the broadband freq-diff leg, chunked and
+   fused, on a two-FM-channel EK80 file of 1,000 pings at the ek80 phase's
+   width;
+11. EK80 (``ek80``): two files of tests/synth_ek80.py (70 kHz FM, 120 kHz
    CW complex, 38 kHz GPT power; 2,000 pings x 8,192 samples x 4 sectors
    each, consecutive in time): ``open_raw`` (seconds, each complex
    channel's replica length); ``compute_Sv`` on file A in BB, CW complex
@@ -79,8 +100,9 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    the last range bin, tests/test_survey.py:536-538), K1 + K2 launched
    once per power-mode chunk, nothing launched on cpu; walls, stage
    seconds and pings/s of every run;
-11. print the matched filter's launches and timings (a cuBLAS matmul, not
-   a Pallas kernel's port), then the kernel table as one JSON line
+12. print the matched filter's and the masks' device programs (plain
+   PyTorch, not a Pallas kernel's port) with launches and timings, then the
+   kernel table as one JSON line
    (launches on the main paths, the survey's and the ek80 power leg's for
    K1 / K2; error, kernel / plain twin ms, bound ms and what sets it; no
    single PyTorch call computes any of the four functions, so
@@ -127,6 +149,25 @@ EK80_GRID = dict(range_bin="5m", ping_time_bin="20s", chunk_pings=1000)
 EK80_CPU_DB = {"BB": 1e-3, "CW_complex": 1e-4, "CW_power": 1e-4}
 BB_F64_DB = 1e-3
 FUSED_VS_CHUNKED_DB, FUSED_LAST_BIN_DB = 5e-3, 0.2  # tests/test_survey.py:536-538
+# the masks phase: noise injected as tests/test_survey_clean.py:35-49 does
+# pings of A (grid route) and C (grid by ping) for the masks' card-vs-CPU
+# checks and the masked Sv-store surveys: C's pooling runs in float64 and
+# its CPU reference takes tens of ms a ping of 5 x 4,000 samples, so C
+# takes a shorter head
+MASK_HEAD = {"A": 1000, "C": 300}
+MASK_SURVEY_PINGS = {"A": 2000, "C": 300}
+MASK_RAW_PINGS = 2000  # file D, the raw noise-mask route
+FD_BB_PINGS = 1000  # file E, two FM channels, the broadband freq-diff leg
+FD_EQ = "38kHz - 18kHz > 3.0dB"  # tests/test_survey_freqdiff.py:64
+MASK_MARGIN_DB = 1e-4  # a mask may differ between the card and the CPU under this margin
+BB_FD_MARGIN_DB = 1e-3  # broadband Sv, card vs CPU: EK80_CPU_DB["BB"]
+# the clean masks of the masked surveys: the JAX package's defaults, with the
+# attenuated mask at -8 dB (its default +8 dB flags nearly every ping, where
+# the echopy criterion ping - block < threshold takes a negative one to
+# isolate attenuation, tests/test_clean.py:130-131)
+SURVEY_MASKS = {"impulse": {}, "transient": {},
+                "attenuated": {"attenuation_signal_threshold": "-8.0dB"}}
+RAW_MASKS = {k: dict(v, range_var="echo_range") for k, v in SURVEY_MASKS.items()}
 # H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.  The latter counts an FMA
 # as two: the card issues half as many instructions, 128 lanes a clock per
@@ -593,6 +634,550 @@ def sv_survey_phase(files, grid_a):
     failed = [k for k, v in checks.items() if not v]
     if failed:
         raise AssertionError(f"sv_survey phase failed: {failed}")
+    return stores
+
+
+def inject_noise(ds):
+    """A copy of ``ds`` with the noise of tests/test_survey_clean.py:35-49 at
+    survey spacing: an impulse ping (+30 dB, channel 0) every 500 pings, a
+    transient blob (+20 dB over 3 pings from 300 m down, channel 1) every
+    1,000, an attenuated run (-25 dB over 400-500 m, 5 pings, channel 2)
+    every 1,000."""
+    sv = np.array(ds["Sv"].values, dtype="f8")
+    depth = np.broadcast_to(np.asarray(ds["depth"].values, dtype="f8"), sv.shape)
+    P_ = sv.shape[1]
+    for p in range(250, P_, 500):
+        sv[0, p] += 30.0
+    for p in range(500, P_ - 2, 1000):
+        blk = slice(p, p + 3)
+        sv[1, blk] += np.where(depth[1, blk] >= 300.0, 20.0, 0.0)
+    for p in range(100, P_ - 4, 1000):
+        blk = slice(p, p + 5)
+        sv[2, blk] -= np.where((depth[2, blk] >= 400.0) & (depth[2, blk] <= 500.0), 25.0, 0.0)
+    out = ds.copy()
+    out["Sv"] = (ds["Sv"].dims, sv, dict(ds["Sv"].attrs))
+    return out
+
+
+def _mask_fns():
+    import echopype_torch as et
+
+    return {"impulse": et.clean.mask_impulse_noise, "transient": et.clean.mask_transient_noise,
+            "attenuated": et.clean.mask_attenuated_signal}
+
+
+def _grid_operands(ds):
+    """The device programs' operands as clean.mask_* builds them on a
+    ping-invariant depth grid, at the JAX package's default parameters."""
+    from echopype_torch.clean import utils as cu
+    from echopype_torch.ops import windows as tw
+
+    sv = np.asarray(ds["Sv"].values, dtype="f4")
+    depth = np.broadcast_to(np.asarray(ds["depth"].values, dtype="f8"), sv.shape)
+    grid = cu.uniform_grid(depth)
+    if grid is None:
+        raise AssertionError("masks phase: file A's depth grid varies by ping")
+    lo, hi, v_r, halo = tw.grid_window_members(grid, 10.0, 250.0)
+    edges = np.arange(np.nanmin(depth), np.nanmax(depth) + 5.0, 5.0)
+    n_b = max(len(edges) - 1, 1)
+    idx = np.clip(np.digitize(grid, edges) - 1, 0, n_b - 1).astype("i4")
+    up = np.argmin(np.abs(grid - 400.0), axis=1).astype("i4")
+    widths = np.maximum(np.argmin(np.abs(grid - 500.0), axis=1) - up, 0).astype("i4")
+    return dict(sv=sv, grid=grid, lo=lo, hi=hi, v_r=v_r, halo=halo, gmask=np.isfinite(grid),
+                idx=idx, n_b=n_b, up=up, widths=widths, s_max=max(int(widths.max()), 1))
+
+
+def time_mask_programs(ds_a, ds_c_head):
+    """Each device program of the masks alone on the card (CUDA events,
+    median of 5), on the operands the clean masks build: the pooled
+    transient mask, the impulse mask and the attenuated mask on file A at
+    full width, the float64 pooling of a grid that varies by ping on C's
+    head, and the freq-diff survey step on one 5,000-ping chunk.  Each with
+    bytes (inputs read once, outputs written once) and the instructions the
+    function needs (adds of every window member, the library exp / log10,
+    sort compares) against the card's peaks."""
+    from echopype_torch.ops import windows as tw
+    from echopype_torch.parallel import pipeline as tp
+
+    saved = (dict(tw.LAUNCHES), dict(tp.LAUNCHES))
+    dev = torch.device("cuda")
+    o = _grid_operands(ds_a)
+    C_, P_, R_ = o["sv"].shape
+    N = C_ * P_ * R_
+    sv_t = torch.from_numpy(o["sv"]).to(dev)
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    ops = (t(o["gmask"]), t(o["lo"], torch.int64), t(o["hi"], torch.int64),
+           t(o["v_r"], torch.bool))
+    members = float((o["hi"] - o["lo"]).sum())
+    s_max, W_att = o["s_max"], 15
+    n_sort = 2 * W_att * s_max
+    chunk = chunk_inputs(7, vary_dr=False)
+    fd_args = (*chunk[:8], chunk[8], len(chunk[7]) - 1, 1, 0, ">", 3.0)
+    sv_c = np.asarray(ds_c_head["Sv"].values, dtype="f8")
+    depth_c = np.asarray(ds_c_head["depth"].values, dtype="f8")
+    Cc, Pc, Rc = sv_c.shape
+    progs = {
+        "transient_mask": (
+            "echopype_tpu/ops/windows.py:424", "ops/windows.py::transient_mask_grid_idx_device",
+            lambda: tw.transient_mask_grid_idx_device(sv_t, *ops, 25, 12.0,
+                                                      range_halo=o["halo"], device=dev),
+            5 * N + 13 * C_ * R_,
+            2 * P_ * members + 2 * 51 * N + N * (EXPF_INSTR + LOG10F_INSTR + 2)),
+        "impulse_mask": (
+            "echopype_tpu/ops/windows.py:527", "ops/windows.py::impulse_mask_grid_device",
+            lambda: tw.impulse_mask_grid_device(sv_t, t(o["idx"], torch.int64), o["n_b"], 2,
+                                                10.0, device=dev),
+            5 * N + 4 * C_ * R_, N * (EXPF_INSTR + 8) + C_ * P_ * o["n_b"] * LOG10F_INSTR),
+        "attenuated_mask": (
+            "echopype_tpu/ops/windows.py:581", "ops/windows.py::attenuated_ping_mask_grid_device",
+            lambda: tw.attenuated_ping_mask_grid_device(sv_t, t(o["up"], torch.int64),
+                                                        t(o["widths"], torch.int64), s_max,
+                                                        W_att, 8.0, device=dev),
+            4 * C_ * P_ * s_max + C_ * P_,
+            C_ * P_ * (n_sort * int(np.ceil(np.log2(n_sort))) + s_max * EXPF_INSTR)),
+        "exact_pooling_ping_varying": (
+            "echopype_tpu/ops/windows.py:184",
+            "ops/windows.py::pool_sv_nanmean_exact_device",
+            lambda: tw.pool_sv_nanmean_exact_device(sv_c, depth_c, 10.0, 25, 250.0, device=dev),
+            8 * (2 * Cc * Pc * (Rc + 1) + 3 * Cc * Pc * Rc),
+            51 * Cc * Pc * Rc * (2 * int(np.ceil(np.log2(Rc + 1))) + 6)),
+        "freqdiff_step": (
+            "echopype_tpu/parallel/pipeline.py:325",
+            "parallel/pipeline.py::sv_mvbs_window_partials_freqdiff",
+            lambda: tp.sv_mvbs_window_partials_freqdiff(*fd_args, device=dev),
+            2 * C * P * R + 2 * 4 * C * chunk[8] * (len(chunk[7]) - 1) + 4 * 4 * C * P,
+            C * P * R * (INSTR_PER_SAMPLE["K2"] + 4)),
+    }
+    out = {}
+    for name, (jax_src, port, fn, nbytes_, instr) in progs.items():
+        ms = cuda_ms(fn, reps=5, warmup=1)
+        out[name] = {"replaces": jax_src, "port": f"echopype_torch/{port}", "ms": ms,
+                     "bytes": nbytes_, **bound_ms(nbytes_, instr), "library_ms": None}
+    del sv_t
+    torch.cuda.empty_cache()
+    tw.LAUNCHES.update(saved[0])
+    tp.LAUNCHES.update(saved[1])
+    return out
+
+
+def _flag_bins(flag, pt, rng_vals, x_left, r_left):
+    """bool [C, n_x, n_r]: the output bins that hold a flagged sample.
+    flag [C, P, R]; pt [P] datetime64 or distance; rng_vals [C, P, R]."""
+    bins = np.zeros((flag.shape[0], len(x_left), len(r_left)), dtype=bool)
+    c, p, r = np.nonzero(flag)
+    if c.size:
+        xi = np.clip(np.searchsorted(x_left, pt[p], side="right") - 1, 0, len(x_left) - 1)
+        ri = np.searchsorted(r_left, rng_vals[c, p, r], side="right") - 1
+        ok = (ri >= 0) & (ri < len(r_left))
+        bins[c[ok], xi[ok], ri[ok]] = True
+    return bins
+
+
+def _cmp_excused(a, b, excused, rtol=False):
+    """(max error over the bins not excused, NaN masks equal there, bins
+    excused): dB difference, or the relative one with ``rtol``."""
+    a, b = np.asarray(a, dtype="f8"), np.asarray(b, dtype="f8")
+    keep = ~excused
+    same_nan = bool(np.array_equal(np.isnan(a)[keep], np.isnan(b)[keep]))
+    ok = keep & np.isfinite(a) & np.isfinite(b) & ((b != 0) if rtol else True)
+    d = np.abs(a - b)[ok] / (np.abs(b[ok]) if rtol else 1.0)
+    return (float(d.max()) if d.size else 0.0), same_nan, int(excused.sum())
+
+
+def _margin_excused(bad, ds_list, eq_margin, margin_db, out, x_coord="ping_time"):
+    """Of the output bins in ``bad`` (a bool [C, n_x, n_r] of bins over
+    tolerance or with another NaN), those holding a sample whose
+    frequency-differencing margin |Sv[ia] - Sv[ib] - diff| is under
+    ``margin_db`` on the card's Sv (datasets ``ds_list``): the knife edges
+    where the card and the CPU may rightly decide apart."""
+    excused = np.zeros_like(bad)
+    if not bad.any():
+        return excused
+    x_left = np.asarray(out.coords[x_coord].values).astype("i8")
+    r_left = np.asarray(out.coords["echo_range"].values, dtype="f8")
+    bad_xr = bad.any(axis=0)
+    for ds in ds_list:
+        pt = np.asarray(ds.coords["ping_time"].values, dtype="datetime64[ns]").astype("i8")
+        xi = np.clip(np.searchsorted(x_left, pt, side="right") - 1, 0, len(x_left) - 1)
+        pings = np.nonzero(bad_xr[xi].any(axis=1))[0]
+        if not pings.size:
+            continue
+        sv = np.asarray(ds["Sv"].values, dtype="f8")[:, pings]
+        er = np.broadcast_to(np.asarray(ds["echo_range"].values, dtype="f8"),
+                             np.asarray(ds["Sv"].values).shape)[:, pings]
+        knife = eq_margin(sv) < margin_db  # [P', R]
+        excused |= _flag_bins(np.broadcast_to(knife, sv.shape), pt[pings], er, x_left, r_left)
+    return excused & bad
+
+
+def _bad_bins(a, b, atol):
+    a, b = np.asarray(a, dtype="f8"), np.asarray(b, dtype="f8")
+    with np.errstate(invalid="ignore"):
+        return (np.isnan(a) != np.isnan(b)) | (np.abs(a - b) > atol)
+
+
+def _fd_margin(ia, ib, diff):
+    return lambda sv: np.abs(sv[ia] - sv[ib] - diff)
+
+
+def _survey_distance(dss):
+    """run_survey_nasc's cumulative distance per ping over ``dss``."""
+    from echopype_torch.commongrid.utils import get_distance_from_latlon
+    from echopype_torch.utils.geodesy import pairwise_distance_nmi
+
+    out, offset, prev = [], 0.0, None
+    for ds in dss:
+        lat, lon = (np.asarray(ds[v].values, dtype="f8") for v in ("latitude", "longitude"))
+        if prev is not None:
+            offset += float(pairwise_distance_nmi(np.array([prev[0], lat[0]]),
+                                                  np.array([prev[1], lon[0]]))[0])
+        out.append(get_distance_from_latlon(ds) + offset)
+        offset, prev = float(out[-1][-1]), (lat[-1], lon[-1])
+    return out
+
+
+def _noise_flags(ds, spec, device):
+    """The OR of the ``spec`` clean masks on ``device``: bool [C, P, R]."""
+    from echopype_torch.parallel.survey import _apply_noise_masks
+    from echopype_torch.utils.profiling import StageTimer
+
+    sv = np.asarray(ds["Sv"].values, dtype="f4")
+    return np.isnan(_apply_noise_masks(ds, sv, spec, StageTimer(), device)) & ~np.isnan(sv)
+
+
+def masks_card_vs_cpu(ds, tag):
+    """The three masks at default parameters on the card (twice) and on the
+    CPU over one head of pings; pooled and upsampled Sv on both.  Masks may
+    differ only where the margin to the threshold is under MASK_MARGIN_DB."""
+    from echopype_torch.clean import utils as cu
+
+    sv = np.asarray(ds["Sv"].values, dtype="f8")
+    depth = np.broadcast_to(np.asarray(ds["depth"].values, dtype="f8"), sv.shape)
+    res, checks = {}, {}
+    pooled = {d: cu.pool_Sv_nanmean(sv, depth, 10.0, 25, 250.0, device=d) for d in ("cuda", "cpu")}
+    up = {d: cu.downsample_upsample_along_depth(sv, depth, 5.0, device=d)[1]
+          for d in ("cuda", "cpu")}
+    for name, vals in (("pooled", pooled), ("upsampled", up)):
+        db, same_nan = _max_db(vals["cuda"], vals["cpu"])
+        res[f"{name}_cuda_vs_cpu_dB"] = db
+        checks[f"{tag} {name} Sv cuda vs cpu"] = same_nan and db <= MVBS_ATOL_DB
+    with np.errstate(invalid="ignore"):
+        u = up["cpu"]
+        fwd = np.full(u.shape, np.inf)
+        bwd = np.full(u.shape, np.inf)
+        fwd[:, :-2] = u[:, :-2] - u[:, 2:]
+        bwd[:, 2:] = u[:, 2:] - u[:, :-2]
+        margins = {
+            "transient": np.abs(sv - pooled["cpu"] - 12.0),
+            "impulse": np.minimum(np.abs(np.nan_to_num(fwd, nan=np.inf) - 10.0),
+                                  np.abs(np.nan_to_num(bwd, nan=np.inf) - 10.0)),
+        }
+    for kind, fn in _mask_fns().items():
+        m1, m2 = (fn(ds, device="cuda").values for _ in range(2))
+        mc = fn(ds, device="cpu").values
+        diff = m1 != mc
+        if kind == "attenuated" and diff.any():
+            margin = _attenuated_margin(sv, depth, diff.any(axis=2))
+        else:
+            margin = margins.get(kind, np.zeros(sv.shape))[diff]
+        res[f"{kind}_flagged"] = int(m1.sum())
+        res[f"{kind}_differ"] = int(diff.sum())
+        checks[f"{tag} {kind} rerun bit-identical"] = bool(np.array_equal(m1, m2))
+        checks[f"{tag} {kind} cuda vs cpu"] = bool((np.asarray(margin) < MASK_MARGIN_DB).all())
+    return res, checks
+
+
+def _attenuated_margin(sv, depth, pings_cp):
+    """|ping median - block median - 8 dB| in float64 for the (channel, ping)
+    pairs in ``pings_cp`` (echopy_attenuated_signal_mask's medians)."""
+    out = []
+    lin = 10.0 ** (sv / 10.0)
+    for c, p in zip(*np.nonzero(pings_cp)):
+        up = int(np.argmin(np.abs(depth[c, p] - 400.0)))
+        lw = int(np.argmin(np.abs(depth[c, p] - 500.0)))
+        with np.errstate(invalid="ignore"):
+            ping = 10 * np.log10(np.nanmedian(lin[c, p, up:lw]))
+            block = 10 * np.log10(np.nanmedian(lin[c, p - 15 : p + 15, up:lw]))
+        out.append(abs(ping - block - 8.0))
+    return np.array(out)
+
+
+def masks_phase(files, stores):
+    """clean and mask on the card: the masks at full width on file A, card
+    against CPU on heads of A (grid route) and C (grid by ping),
+    frequency_differencing / apply_mask on A, the masked Sv-store surveys,
+    run_survey_mvbs_from_raw with freq_diff over A, B, C and with
+    noise_masks on an extra file, and the broadband freq-diff leg chunked
+    and fused.  Returns the device programs' timings with their launches."""
+    import echopype_torch as et
+    from echopype_torch.echodata.simrad import retrieve_correct_beam_group
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.ops import windows as tw
+    from echopype_torch.parallel import pipeline as tp
+    from echopype_torch.parallel.survey import _fd_mask
+    from echopype_torch.utils.io import open_source
+    from echopype_torch.utils.profiling import StageTimer
+
+    tw.reset_launches()
+    tp.LAUNCHES["freqdiff_step"] = 0
+    checks, walls = {}, {}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[stage] = round(time.perf_counter() - t0, 3)
+        return out
+
+    # 1. the three masks at full width on the card, file A (10,000 pings)
+    ds_a = timed("open_store_A", lambda: inject_noise(open_source(stores[0], "dataset")))
+    ds_c = timed("open_store_C", lambda: inject_noise(open_source(stores[2], "dataset")))
+    torch.cuda.reset_peak_memory_stats()
+    flagged = {}
+    for kind, fn in _mask_fns().items():
+        flagged[kind] = int(timed(f"{kind}_A_cuda", lambda: fn(ds_a, device="cuda")).values.sum())
+        checks[f"{kind} flags on A"] = flagged[kind] > 0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    heads = {tag: ds.isel(ping_time=slice(0, MASK_HEAD[tag]))
+             for tag, ds in (("A", ds_a), ("C", ds_c))}
+    programs = timed("program_timing", lambda: time_mask_programs(ds_a, heads["C"]))
+    say("masks_full_width", shape=list(np.shape(ds_a["Sv"].values)), flagged=json.dumps(flagged),
+        peak_GB=round(peak_gb, 3), walls_s=json.dumps(walls),
+        programs=json.dumps({k: {f: (round(v, 4) if isinstance(v, float) else v)
+                                 for f, v in d.items() if f in ("ms", "bound_ms", "bound_by")}
+                             for k, d in programs.items()}))
+    checks["peak memory under 20 GB"] = peak_gb < 20.0
+
+    # 2. card against CPU on heads: A (grid route), C (grid by ping)
+    head_res = {}
+    for tag, ds in heads.items():
+        res, chk = timed(f"head_{tag}", lambda: masks_card_vs_cpu(ds, tag))
+        head_res[tag] = res
+        checks.update(chk)
+    say("masks_heads", pings=json.dumps(MASK_HEAD), results=json.dumps(head_res))
+
+    # 3. frequency_differencing and apply_mask on A: Sv from the card / CPU
+    ed_a = et.open_raw(files[0], sonar_model="EK60")
+    sv_cpu = timed("compute_Sv_A_cpu", lambda: et.calibrate.compute_Sv(ed_a, device="cpu"))
+    del ed_a
+    ds_card = open_source(stores[0], "dataset")
+    m_card, m_cpu = (et.mask.frequency_differencing(d, freqABEq=FD_EQ) for d in (ds_card, sv_cpu))
+    diff = m_card.values != m_cpu.values
+    margin = _fd_margin(1, 0, 3.0)(np.asarray(ds_card["Sv"].values, dtype="f8"))
+    a_card, a_cpu = (np.asarray(et.mask.apply_mask(d, m)["Sv"].values)
+                     for d, m in ((ds_card, m_card), (sv_cpu, m_cpu)))
+    keep = ~np.broadcast_to(diff, a_card.shape)
+    fd_db, fd_nan = _max_db(a_card[keep], a_cpu[keep])
+    checks["frequency_differencing cuda vs cpu"] = bool((margin[diff] < MASK_MARGIN_DB).all())
+    checks["apply_mask cuda vs cpu"] = fd_nan and fd_db <= MVBS_ATOL_DB
+    say("masks_freq_diff", kept_share=round(float(m_card.values.mean()), 4),
+        mask_differ=int(diff.sum()), apply_mask_cuda_vs_cpu_dB=fd_db)
+    del sv_cpu, ds_card, a_card, a_cpu, keep
+
+    # 4. masked Sv-store surveys over the first 2,000 pings of A and C
+    srcs = [ds.isel(ping_time=slice(0, MASK_SURVEY_PINGS[tag]))
+            for tag, ds in (("A", ds_a), ("C", ds_c))]
+    mvbs_kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s")
+    nasc_kw = dict(range_bin="10m", dist_bin="0.5nmi")
+    runs = {}
+    for name, fn, kw in (("mvbs_noise", et.run_survey_mvbs, dict(noise_masks=SURVEY_MASKS)),
+                         ("mvbs_fd", et.run_survey_mvbs, dict(freq_diff=FD_EQ)),
+                         ("nasc_noise", et.run_survey_nasc, dict(noise_masks=SURVEY_MASKS))):
+        for device in ("cuda", "cpu"):
+            runs[f"{name}_{device}"] = timed(f"{name}_{device}", lambda: fn(
+                srcs, device=device, **(nasc_kw if name.startswith("nasc") else mvbs_kw), **kw))
+    flags = {}  # each run's mask on both devices, made where the runs disagree
+
+    def mask_differs(name):
+        if name not in flags:
+            if "noise" in name:
+                by = {d: [_noise_flags(ds, SURVEY_MASKS, d) for ds in srcs]
+                      for d in ("cuda", "cpu")}
+            else:
+                by = {d: [torch.isnan(_fd_mask((1, 0, ">", 3.0))(torch.from_numpy(np.asarray(
+                    ds["Sv"].values, dtype="f4")).to(torch.device(d)))).cpu().numpy()
+                    for ds in srcs] for d in ("cuda", "cpu")}
+            flags[name] = [a != b for a, b in zip(by["cuda"], by["cpu"])]
+        return flags[name]
+
+    dists = _survey_distance(srcs)
+    survey = {}
+    for name in ("mvbs_noise", "mvbs_fd", "nasc_noise"):
+        g, w = runs[f"{name}_cuda"], runs[f"{name}_cpu"]
+        nasc = name.startswith("nasc")
+        var, rname = ("NASC", "depth") if nasc else ("Sv", "echo_range")
+        gv, wv = (np.asarray(o[var].values, dtype="f8") for o in (g, w))
+        with np.errstate(invalid="ignore", divide="ignore"):
+            bad = (np.isnan(gv) != np.isnan(wv)) | (
+                np.abs(gv - wv) / (np.abs(wv) if nasc else 1.0)
+                > (NASC_RTOL if nasc else MVBS_ATOL_DB))
+        excused = np.zeros(gv.shape, dtype=bool)
+        differ = 0
+        if bad.any():
+            x_left = (np.asarray(g.coords["distance"].values, dtype="f8") if nasc else
+                      np.asarray(g.coords["ping_time"].values).astype("i8"))
+            r_left = np.asarray(g.coords[rname].values, dtype="f8")
+            for i, ds in enumerate(srcs):
+                x = dists[i] if nasc else np.asarray(ds.coords["ping_time"].values).astype("i8")
+                rv = np.broadcast_to(np.asarray(ds[rname].values, dtype="f8"),
+                                     np.shape(ds["Sv"].values))
+                excused |= _flag_bins(mask_differs(name)[i], x, rv, x_left, r_left)
+                differ += int(mask_differs(name)[i].sum())
+        err, same_nan, n_exc = _cmp_excused(gv, wv, excused & bad, rtol=nasc)
+        coords = ("channel", "distance", "depth") if nasc else ("channel", "ping_time",
+                                                               "echo_range")
+        survey[name] = {"err": err, "bins_over_tol": int(bad.sum()), "bins_excused": n_exc,
+                        "samples_differ": differ,
+                        "finite_share": round(float(np.isfinite(gv).mean()), 4)}
+        checks[f"{name} cuda vs cpu"] = (same_nan and err <= (NASC_RTOL if nasc else MVBS_ATOL_DB)
+                                         and _same_coords(g, w, coords))
+    # the fused noise-mask stream over all of A against the composed chain on the card
+    fused = timed("mvbs_noise_A_fused", lambda: et.run_survey_mvbs(
+        [ds_a], noise_masks=SURVEY_MASKS, **mvbs_kw))
+
+    def composed():
+        sv = np.asarray(ds_a["Sv"].values, dtype="f8")
+        flag = np.zeros(sv.shape, dtype=bool)
+        for kind, params in SURVEY_MASKS.items():
+            flag |= np.asarray(_mask_fns()[kind](ds_a, **params).values, dtype=bool)
+        masked = ds_a.copy()
+        masked["Sv"] = (ds_a["Sv"].dims, np.where(flag, np.nan, sv))
+        return et.run_survey_mvbs([masked], **mvbs_kw)
+
+    comp = timed("mvbs_noise_A_composed", composed)
+    checks["A fused noise masks == composed chain"] = bool(np.array_equal(
+        np.asarray(fused["Sv"].values), np.asarray(comp["Sv"].values), equal_nan=True))
+    survey["A_fused_vs_composed_equal"] = checks["A fused noise masks == composed chain"]
+    say("masks_sv_survey", pings=json.dumps(MASK_SURVEY_PINGS), results=json.dumps(survey))
+    del ds_a, ds_c, heads, srcs, runs, fused, comp
+
+    # 5. run_survey_mvbs_from_raw with freq_diff over A, B, C
+    raw_kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", chunk_pings=P,
+                  freq_diff=FD_EQ)
+    fd_runs, fd_launches = {}, {}
+    for device in ("cuda", "cpu"):
+        wp.reset_launches()
+        tp.LAUNCHES["freqdiff_step"] = 0
+        fd_runs[device] = timed(f"raw_fd_{device}", lambda: et.run_survey_mvbs_from_raw(
+            files[:3], timer=StageTimer(), device=device, **raw_kw))
+        fd_launches[device] = {**wp.LAUNCHES, **tp.LAUNCHES}
+    g, w = (np.asarray(fd_runs[d]["Sv"].values) for d in ("cuda", "cpu"))
+    bad = _bad_bins(g, w, MVBS_ATOL_DB)
+    excused = _margin_excused(bad, [open_source(s, "dataset") for s in stores[:3]] if bad.any()
+                              else [], _fd_margin(1, 0, 3.0), MASK_MARGIN_DB, fd_runs["cuda"])
+    err, same_nan, n_exc = _cmp_excused(g, w, excused)
+    chunks = sum(-(-n // P) for n in E2E_PINGS)
+    checks["raw freq_diff cuda vs cpu"] = (same_nan and err <= MVBS_ATOL_DB and _same_coords(
+        fd_runs["cuda"], fd_runs["cpu"], ("channel", "ping_time", "echo_range")))
+    checks["raw freq_diff launches"] = fd_launches["cuda"] == {
+        "window_partials_uniform": 0, "window_partials": 0, "freqdiff_step": chunks}
+    say("masks_raw_freq_diff", pings=sum(E2E_PINGS), launches=json.dumps(fd_launches),
+        cuda_vs_cpu_dB=err, bins_over_tol=int(bad.sum()), bins_excused=n_exc,
+        pings_per_s={d: round(sum(E2E_PINGS) / walls[f"raw_fd_{d}"], 1) for d in ("cuda", "cpu")},
+        stages=fd_runs["cuda"].attrs["stage_timing"])
+
+    # 6. run_survey_mvbs_from_raw with noise_masks (two-pass) on an extra file
+    extra = write_mask_raw_file()
+    nm_runs = {d: timed(f"raw_noise_{d}", lambda: et.run_survey_mvbs_from_raw(
+        [extra], noise_masks=RAW_MASKS, timer=StageTimer(), device=d,
+        range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s")) for d in ("cuda", "cpu")}
+    ed = et.open_raw(extra, sonar_model="EK60")
+    sv_by = {d: et.calibrate.compute_Sv(ed, device=d) for d in ("cuda", "cpu")}
+    flag = _noise_flags(sv_by["cuda"], RAW_MASKS, "cuda") != _noise_flags(sv_by["cpu"], RAW_MASKS,
+                                                                           "cpu")
+    out = nm_runs["cuda"]
+    excused = _flag_bins(flag, np.asarray(sv_by["cuda"].coords["ping_time"].values).astype("i8"),
+                         np.broadcast_to(np.asarray(sv_by["cuda"]["echo_range"].values, "f8"),
+                                         flag.shape),
+                         np.asarray(out.coords["ping_time"].values).astype("i8"),
+                         np.asarray(out.coords["echo_range"].values, dtype="f8"))
+    err, same_nan, n_exc = _cmp_excused(out["Sv"].values, nm_runs["cpu"]["Sv"].values, excused)
+    checks["raw noise_masks cuda vs cpu"] = (same_nan and err <= MVBS_ATOL_DB and _same_coords(
+        out, nm_runs["cpu"], ("channel", "ping_time", "echo_range")))
+    say("masks_raw_noise", pings=MASK_RAW_PINGS, cuda_vs_cpu_dB=err, samples_differ=int(flag.sum()),
+        bins_excused=n_exc, finite_share=round(float(np.isfinite(out["Sv"].values).mean()), 4))
+    del ed, sv_by, nm_runs
+
+    # 7. the broadband freq-diff leg: two FM channels, chunked and fused
+    bb = write_fd_bb_file()
+    ed = et.open_raw(bb, sonar_model="EK80")
+    chans = [str(c) for c in ed[retrieve_correct_beam_group(ed, "BB", "complex")]
+             .coords["channel"].values]
+    eq = f'"{chans[0]}" - "{chans[1]}" > 3.0dB'
+    bb_runs = {}
+    for mode, extra_kw in (("chunked", {}), ("fused", dict(device_fused=True))):
+        for device in ("cuda", "cpu"):
+            bb_runs[f"{mode}_{device}"] = timed(f"bb_fd_{mode}_{device}", lambda: (
+                et.run_survey_mvbs_from_raw([bb], sonar_model="EK80", waveform_mode="BB",
+                                            encode_mode="complex", freq_diff=eq,
+                                            timer=StageTimer(), device=device,
+                                            **EK80_GRID, **extra_kw)))
+    sv_bb = []
+
+    def bb_sv():  # the card's float32 BB Sv, for the knife-edge margins
+        if not sv_bb:
+            sv_bb.append(et.calibrate.compute_Sv(ed, waveform_mode="BB", encode_mode="complex",
+                                                 precision="float32"))
+        return sv_bb
+
+    bb_res = {}
+    for name, (ga, wa, tol, margin_db) in {
+        "chunked_cuda_vs_cpu": ("chunked_cuda", "chunked_cpu", MVBS_ATOL_DB, BB_FD_MARGIN_DB),
+        "fused_cuda_vs_cpu": ("fused_cuda", "fused_cpu", MVBS_ATOL_DB, BB_FD_MARGIN_DB),
+        "fused_vs_chunked": ("fused_cuda", "chunked_cuda", FUSED_VS_CHUNKED_DB,
+                             FUSED_VS_CHUNKED_DB),
+    }.items():
+        g, w = (np.asarray(bb_runs[k]["Sv"].values) for k in (ga, wa))
+        bad = _bad_bins(g, w, tol)
+        if name == "fused_vs_chunked":
+            bad[:, :, -1] = _bad_bins(g[:, :, -1], w[:, :, -1], FUSED_LAST_BIN_DB)
+        excused = _margin_excused(bad, bb_sv() if bad.any() else [], _fd_margin(0, 1, 3.0),
+                                  margin_db, bb_runs[ga])
+        body_bad = bad & ~excused
+        same_nan = bool(np.array_equal(np.isnan(g)[~excused], np.isnan(w)[~excused]))
+        bb_res[name] = {"max_dB": _max_db(g, w)[0], "bins_over_tol": int(bad.sum()),
+                        "bins_excused": int(excused.sum())}
+        checks[f"bb freq_diff {name}"] = (same_nan and not body_bad.any()
+                                          and g.shape == w.shape and np.isfinite(g).any())
+    say("masks_bb_freq_diff", pings=FD_BB_PINGS, channels=len(chans), results=json.dumps(bb_res),
+        pings_per_s=json.dumps({k: round(FD_BB_PINGS / walls[f"bb_fd_{k}"], 1) for k in bb_runs}))
+    del ed, sv_bb, bb_runs
+
+    launches = {**tw.LAUNCHES, "freqdiff_step": fd_launches["cuda"]["freqdiff_step"]}
+    say("masks", walls_s=json.dumps(walls), launches=json.dumps(launches))
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"masks phase failed: {failed}")
+    launch_of = {"exact_pooling_ping_varying": "pool_sv_nanmean_exact"}
+    for name, row in programs.items():
+        row["launches"] = launches[launch_of.get(name, name)]
+    return programs
+
+
+def write_mask_raw_file():
+    """File D: MASK_RAW_PINGS pings of file A's layout (the raw noise-mask route)."""
+    from synth_ek60 import write_ek60_raw
+
+    path = DATA_DIR / "SMOKED-D20200102-T000000.raw"
+    write_ek60_raw(path, n_pings=MASK_RAW_PINGS, n_samples=R, channels=CHANNELS,
+                   frequencies=FREQS, t0=np.datetime64("2020-01-02T00:00:00", "ns"), seed=7,
+                   with_angle=False)
+    return str(path)
+
+
+def write_fd_bb_file():
+    """File E: two FM channels (tests/synth_ek80.py, extra_fm_channel), the
+    ek80 phase's full width, FD_BB_PINGS pings."""
+    from synth_ek80 import write_ek80_raw
+
+    path = DATA_DIR / "SMOKE80FD-D20210301-T000000.raw"
+    write_ek80_raw(path, n_pings=FD_BB_PINGS, n_samples=EK80_R, n_sectors=EK80_SECTORS,
+                   t0=np.datetime64("2021-03-01T00:00:00", "ns"), seed=300,
+                   with_power_channel=False, with_cw_complex=False, extra_fm_channel=True)
+    return str(path)
 
 
 def write_ek80_files():
@@ -886,8 +1471,11 @@ def main():
         ref = et.run_survey_mvbs_from_raw(files, device="cpu", **kw)
         say("e2e_cpu", wall_s=round(time.perf_counter() - t0, 3))
         sv_launches, grid_a = sv_grid_phase(files[0])
-        sv_survey_phase(files, grid_a)
+        stores = sv_survey_phase(files, grid_a)
         del grid_a
+        torch.cuda.empty_cache()
+        mask_programs = masks_phase(files, stores)
+        torch.cuda.empty_cache()
         t0 = time.perf_counter()
         files80 = write_ek80_files()
         say("write_ek80", files=len(files80), seconds=round(time.perf_counter() - t0, 2),
@@ -922,6 +1510,7 @@ def main():
     # the matched filter is no Pallas kernel's port (a cuBLAS matmul), so it
     # is not in the kernels line; its row of PERF.md's second table
     say("device_programs", matched_filter=json.dumps(matched_filter))
+    say("device_programs", masks=json.dumps(mask_programs))
     src = "echopype_torch/csrc/window_partials.cu"
     src_fused = "echopype_torch/csrc/sv_bin_partials.cu"
     table = [

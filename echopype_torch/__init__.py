@@ -10,8 +10,10 @@ stream chunked or fused (``ops/bb_pipeline.py``).  The Sv path:
 the fused survey-processing step ``parallel.survey_pipeline_step``
 (power -> Sv and MVBS in one pass, on the CUDA kernels of
 ``ops/sv_bin_partials.py``), ``consolidate.add_depth`` / ``add_location`` /
-``add_splitbeam_angle``, and the Sv-store survey streamers
-``run_survey_mvbs`` / ``run_survey_nasc``.  The host-only layer (``convert``,
+``add_splitbeam_angle``, the Sv-store survey streamers
+``run_survey_mvbs`` / ``run_survey_nasc``, and ``clean`` / ``mask`` (noise
+masks on the device programs of ``ops/windows.py``, frequency
+differencing; the streamers' ``freq_diff=`` / ``noise_masks=``).  The host-only layer (``convert``,
 ``echodata``, ``xrlite``, ``storage``, ``native``, calibration parameter
 resolution, ``utils``) is the port's own copy of the reference package's,
 in the same layout; the port imports nothing of ``echopype_tpu``.  Entry
@@ -19,7 +21,7 @@ points take ``device=`` ("cuda" by default; "cpu" runs the plain PyTorch
 twins of the kernels).
 """
 
-from . import calibrate, commongrid, consolidate  # noqa: F401
+from . import calibrate, clean, commongrid, consolidate, mask  # noqa: F401
 from .commongrid import compute_MVBS, compute_MVBS_index_binning, compute_NASC  # noqa: F401
 from .convert.api import open_raw  # noqa: F401
 from .echodata.api import open_converted  # noqa: F401
@@ -34,8 +36,10 @@ from .parallel.survey import (  # noqa: F401
 __all__ = [
     "EchoData",
     "calibrate",
+    "clean",
     "commongrid",
     "consolidate",
+    "mask",
     "compute_MVBS",
     "compute_MVBS_index_binning",
     "compute_NASC",

@@ -12,9 +12,11 @@ default bf16 pass cost ~1e-3 dB per bin the same way).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["device_name", "resolve_device"]
+__all__ = ["device_name", "no_tf32", "resolve_device"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -31,6 +33,17 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """TF32 off for the matmuls inside the block, whatever the caller set."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def device_name(dev: torch.device) -> str:

@@ -32,7 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import no_tf32, resolve_device
 
 __all__ = [
     "LAUNCHES",
@@ -108,12 +108,8 @@ def _toeplitz_conv(xr, xi, hr, hi, out_start: int, out_len: int, block_t: int = 
     Hi = torch.where(band, hi_f[idx], 0.0)
     Hc = torch.cat([torch.cat([Hr, Hi], dim=1), torch.cat([-Hi, Hr], dim=1)], dim=0)
     X = torch.cat([expand(xr), expand(xi)], dim=-1)  # [lanes, nblk, 2K]
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with no_tf32():
         Y = torch.matmul(X, Hc)  # [lanes, nblk, 2T]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
     if X.is_cuda:
         LAUNCHES["toeplitz_matmul"] += 1
     re = Y[:, :, :T].reshape(lanes, nblk * T)[:, :out_len]

@@ -7,6 +7,9 @@ Counterpart of the single-device parts of
   (per-channel uniform ``dr``, the instrument norm, K1) and
   ``sv_mvbs_window_partials`` (``dr`` varying by ping; the EK case,
   ``r0`` = 0, K2), plus the host helpers that fix their bin bounds;
+* the same step with a frequency-differencing mask fused in,
+  ``sv_mvbs_window_partials_freqdiff`` (plain torch: its counts depend on
+  the data, so they are summed like the values);
 * the full survey-processing step ``survey_pipeline_step`` /
   ``sharded_sv_mvbs_step``: float32 dB power -> Sv and its MVBS in one
   pass, on K3 (with Sv) or K4 (MVBS only) for uniform ``dr``, and the plain
@@ -26,8 +29,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
-from ..ops.binning import _prefix_gather_diff
+from ..device import no_tf32, resolve_device
+from ..ops.binning import _prefix_gather_diff, banded_x_reduce
 from ..ops.sv_bin_partials import (
     _as_f32,
     _bin_matrix,
@@ -36,9 +39,16 @@ from ..ops.sv_bin_partials import (
     mvbs_core_fused,
     sv_mvbs_core_fused,
 )
-from ..ops.window_partials import slab_plan, window_partials, window_partials_uniform
+from ..ops.window_partials import (
+    INDEX2POWER,
+    _range_bin_matrix,
+    slab_plan,
+    window_partials,
+    window_partials_uniform,
+)
 
 __all__ = [
+    "LAUNCHES",
     "_prefix_gather_diff",
     "closed_bounds_k0_np",
     "closed_k0_np",
@@ -49,10 +59,12 @@ __all__ = [
     "sv_mvbs_core",
     "sv_mvbs_core_mxu",
     "sv_mvbs_window_partials",
+    "sv_mvbs_window_partials_freqdiff",
     "sv_mvbs_window_partials_uniform",
 ]
 
 _ONE = np.float32(1.0)
+LAUNCHES = {"freqdiff_step": 0}
 
 
 def _refine_bounds(bounds, dr0, edges):
@@ -234,6 +246,73 @@ def sv_mvbs_window_partials(
     )
     _check_n_r(ops, n_r)
     return window_partials(**ops)
+
+
+_CMP = {
+    ">": torch.gt,
+    "<": torch.lt,
+    ">=": torch.ge,
+    "<=": torch.le,
+    "==": torch.eq,
+}
+
+
+def sv_mvbs_window_partials_freqdiff(
+    power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r_edges,
+    n_x_window: int, n_r: int, ia: int, ib: int, op: str, diff_db, device="cuda",
+):
+    """Window partials of Sv masked by frequency differencing.
+
+    Counterpart of the JAX function (an XLA program, EK case ``r0`` = 0).
+    Per sample ``keep = Sv[ia] - Sv[ib] <op> diff_db`` (NaN -> False, the
+    reference's frequency_differencing applied to every channel as
+    apply_mask does); a masked sample joins no bin.  power [C, P, R] int16
+    indices (samples past ``valid_len`` are NaN) or float dB; dr,
+    tvg_shift, absorption, offset [C, P]; x_rel [P] sorted window-relative
+    ping-bin ids.  The range-bin sample bounds come from the host
+    (:func:`closed_bounds_k0_np` on each channel's first-ping ``dr``); sums
+    and the data-dependent counts reduce by one float32 matmul against the
+    0/1 bin matrix with TF32 off, then over the ping window.  Returns
+    (sums, counts) [C, n_x_window, n_r] float32 tensors on ``device``.
+    """
+    dev = resolve_device(device)
+    power = np.asarray(power)
+    C, P, R = power.shape
+    dr = np.asarray(dr, dtype="f4")
+    bounds, _ = closed_bounds_k0_np(dr[:, 0], np.asarray(tvg_shift, dtype="f4")[:, 0],
+                                    r_edges, R)
+    if bounds.shape[1] != n_r + 1:
+        raise ValueError(f"n_r={n_r} disagrees with {bounds.shape[1]} range edges")
+
+    def on(a, dtype=torch.float32):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    lane = torch.arange(R, device=dev)
+    if power.dtype.kind in "iu":
+        pw = torch.where(lane < on(valid_len, torch.int64)[:, :, None],
+                         on(power, torch.int16).to(torch.float32) * INDEX2POWER, torch.nan)
+    else:
+        pw = on(power)
+    r_tvg = lane.to(torch.float32) * on(dr)[:, :, None] - on(tvg_shift)[:, :, None]
+    pos = r_tvg > 0
+    sv = torch.where(
+        pos,
+        pw + 20.0 * torch.log10(torch.where(pos, r_tvg, 1.0))
+        + 2.0 * on(absorption)[:, :, None] * r_tvg + on(offset)[:, :, None],
+        torch.nan,
+    )
+    keep = _CMP[op](sv[ia] - sv[ib], float(diff_db))  # [P, R]; NaN -> False
+    ok = ~torch.isnan(sv) & keep[None]
+    lin = torch.where(ok, torch.pow(10.0, sv / 10.0), 0.0)
+    m = _range_bin_matrix(on(bounds, torch.int64), R)
+    x_rel = on(x_rel, torch.int64)
+    xb = torch.searchsorted(x_rel, torch.arange(n_x_window + 1, device=dev), side="left")
+    with no_tf32():
+        s1 = torch.bmm(torch.cat([lin, ok.to(torch.float32)], dim=1), m)  # [C, 2P, n_r]
+        both = banded_x_reduce(torch.cat([s1[:, :P], s1[:, P:]], dim=2), xb)
+    if dev.type == "cuda":
+        LAUNCHES["freqdiff_step"] += 1
+    return both[:, :, :n_r], both[:, :, n_r:]
 
 
 def _check_n_r(ops, n_r):

@@ -25,6 +25,15 @@ Counterpart of ``echopype_tpu/parallel/survey.py``.  Two families:
   (``ops/bb_pipeline.py``).  Partials are read back one chunk late, so the
   device computes chunk k+1 while the host adds chunk k into float64 sums.
 
+Both families take the JAX package's masking options.  ``freq_diff`` (a
+frequency-differencing criterion) masks Sv on the device before the bins:
+on the Sv stores and the complex chunks a cross-channel mask of the chunk's
+Sv, in power mode a step that fuses the mask into the calibration
+(``pipeline.sv_mvbs_window_partials_freqdiff``, on the eager path instead
+of K1/K2).  ``noise_masks`` runs the ``clean`` masks on each whole file
+(their windows need the file's context) and NaNs the flagged samples; the
+raw streamer then calibrates every file to Sv first and streams those.
+
 The host-to-device copies are plain synchronous ``.to(device)``; the two
 int16 staging buffers alternate, so pinned asynchronous copies can replace
 them later without a buffer being overwritten while a copy reads it.
@@ -57,9 +66,11 @@ from ..utils.profiling import StageTimer
 from ..utils.prov import echopype_prov_attrs
 from ..xrlite import Dataset
 from .pipeline import (
+    _CMP,
     closed_bounds_k0_np,
     closed_window_counts_np,
     sv_mvbs_window_partials,
+    sv_mvbs_window_partials_freqdiff,
     sv_mvbs_window_partials_uniform,
 )
 
@@ -123,7 +134,7 @@ def _global_ping_bins(pt_i8, ping_edges_i8, n_x):
 
 _EK60_MODELS = ("EK60", "ES70")
 _EK80_MODELS = ("EK80", "ES80", "EA640")
-_UNPORTED_ITEMS = {"mesh": 10, "freq_diff": 7, "noise_masks": 8, "workers": 9}
+_UNPORTED_ITEMS = {"mesh": 10, "workers": 9}
 
 
 def _refuse_unported(**options):
@@ -148,6 +159,102 @@ def _widest_window(x_ids, chunk_pings):
 
 class _ScanUnavailable(Exception):
     """Extent scan could not cover this survey; use the eager two-pass path."""
+
+
+def _resolve_freq_diff(freq_diff, chans, freq_nominal=None):
+    """Resolve a frequency-differencing criterion to (ia, ib, op, diff_dB).
+
+    Accepts the reference's equation strings ('"chA" - "chB" > 3dB' /
+    '38kHz - 18kHz >= 10dB', mask/freq_diff.py) or a dict with
+    chanA/chanB (or freqA/freqB), operator, diff.
+    """
+    if freq_diff is None:
+        return None
+    from ..mask.freq_diff import _parse_freq_diff_eq
+
+    if isinstance(freq_diff, str):
+        if '"' in freq_diff:
+            freqAB, chanAB, op, diff = _parse_freq_diff_eq(chanABEq=freq_diff)
+        else:
+            freqAB, chanAB, op, diff = _parse_freq_diff_eq(freqABEq=freq_diff)
+    elif isinstance(freq_diff, dict):
+        chanAB = [freq_diff["chanA"], freq_diff["chanB"]] if "chanA" in freq_diff else None
+        freqAB = [freq_diff["freqA"], freq_diff["freqB"]] if "freqA" in freq_diff else None
+        op = freq_diff.get("operator", ">")
+        diff = float(freq_diff["diff"])
+    else:
+        raise TypeError("freq_diff must be an equation string or a dict")
+
+    chan_list = [str(c) for c in chans]
+    if chanAB is not None:
+        missing = [c for c in chanAB if c not in chan_list]
+        if missing:
+            raise ValueError(f"freq_diff channels not in survey: {missing}")
+        ia, ib = chan_list.index(chanAB[0]), chan_list.index(chanAB[1])
+    else:
+        if freq_nominal is None:
+            raise ValueError("frequency-based freq_diff needs frequency_nominal")
+        fn = np.asarray(getattr(freq_nominal, "values", freq_nominal), dtype="f8")
+        hitsA = np.nonzero(fn == freqAB[0])[0]
+        hitsB = np.nonzero(fn == freqAB[1])[0]
+        if len(hitsA) != 1 or len(hitsB) != 1:
+            raise ValueError(
+                f"freq_diff frequencies {freqAB} must match exactly one channel each"
+            )
+        ia, ib = int(hitsA[0]), int(hitsB[0])
+    return ia, ib, op, float(diff)
+
+
+def _fd_mask(fd):
+    """The cross-channel frequency-differencing mask as a function of a Sv
+    tensor [C, P, R]: samples failing the criterion become NaN on every
+    channel (apply_mask semantics; a NaN difference fails)."""
+    ia, ib, opr, diff = fd
+
+    def masked(sv):
+        keep = _CMP[opr](sv[ia] - sv[ib], float(diff))
+        return torch.where(keep[None], sv, torch.nan)
+
+    return masked
+
+
+_NOISE_MASKS = ("impulse", "transient", "attenuated")
+
+
+def _check_noise_masks(noise_masks):
+    """Refuse a ``noise_masks`` that is not a dict of known mask kinds."""
+    if noise_masks is None:
+        return
+    if not isinstance(noise_masks, dict):
+        raise TypeError("noise_masks must be a dict of clean mask kind -> keyword dict")
+    for kind in noise_masks:
+        if kind not in _NOISE_MASKS:
+            raise ValueError(f"unknown noise mask {kind!r}; options: {_NOISE_MASKS}")
+
+
+def _apply_noise_masks(ds, sv_all, noise_masks, timer, dev):
+    """NaN the samples any requested ``clean`` mask flags, on one whole file.
+
+    ``noise_masks`` maps "impulse" / "transient" / "attenuated" to the
+    keyword dict of the matching ``clean.mask_*`` function, which runs on
+    ``dev``; the masks combine with OR, so the stream equals clean.mask_* ->
+    apply_mask -> the binning, file by file.
+    """
+    from .. import clean
+
+    fns = {
+        "impulse": clean.mask_impulse_noise,
+        "transient": clean.mask_transient_noise,
+        "attenuated": clean.mask_attenuated_signal,
+    }
+    flagged = None
+    with timer.stage("noise_masks"):
+        for kind, params in noise_masks.items():
+            m = np.asarray(fns[kind](ds, **dict(params or {}), device=dev).values, dtype=bool)
+            flagged = m if flagged is None else (flagged | m)
+    if flagged is not None:
+        sv_all = np.where(flagged, np.nan, sv_all)
+    return sv_all
 
 
 def _sanitize_power_cal_inputs(power, *params):
@@ -236,14 +343,16 @@ class _PowerChunkStreamer:
         bi[:, n:] = 0
         return bi
 
-    def stream_file(self, power, dr, shift, alpha, offset, x_idx_all, uniform):
+    def stream_file(self, power, dr, shift, alpha, offset, x_idx_all, uniform, fd=None):
         """Stream one file's chunks.  Uniform files run K1 with host
-        closed-form counts; the others run K2, which also counts."""
+        closed-form counts; the others run K2, which also counts.  With
+        ``fd`` (a resolved frequency-differencing criterion) every chunk
+        runs the masked step, whose counts depend on the data."""
         timer, acc, chunk_pings, window = self.timer, self.acc, self.chunk_pings, self.window
         n_ping = power.shape[1]
         host_counts = (
             closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
-            if uniform else None
+            if uniform and fd is None else None
         )
         # ragged pings pad with a NaN suffix, so finite-count == valid length
         valid_len = (~np.isnan(power)).sum(axis=2).astype("i4")
@@ -264,7 +373,9 @@ class _PowerChunkStreamer:
             args = (p_chunk, _pad2(dr, 1.0), _pad2(shift), _pad2(alpha), _pad2(offset),
                     vl_chunk, x_rel.astype("i4"), self.r_edges_f4, window, self.n_r)
             with timer.stage("device_mvbs"):
-                if uniform:
+                if fd is not None:
+                    s, c = sv_mvbs_window_partials_freqdiff(*args, *fd, device=self.device)
+                elif uniform:
                     s = sv_mvbs_window_partials_uniform(
                         *args, with_counts=False, device=self.device
                     )
@@ -339,9 +450,22 @@ def run_survey_mvbs_from_raw(
     (``ops/bb_pipeline.py``, float32 end to end).  Multi-``filter_time``
     files stream per (channel, filter epoch), as compute_Sv partitions them.
 
+    ``freq_diff`` ('"chA" - "chB" > 3dB', '120kHz - 38kHz > 6dB', or a dict
+    with chanA/chanB or freqA/freqB, operator, diff): masked samples join
+    no bin on any channel.  Power mode then takes the eager path and the
+    masked step (``pipeline.sv_mvbs_window_partials_freqdiff``) instead of
+    K1/K2; complex chunks mask their Sv on the device before the bins; the
+    fused path stacks each chunk's per-channel Sv, masks it and bins it.
+    Multi-``filter_time`` files calibrate whole (all channels aligned) and
+    stream chunked, also under ``device_fused``.
+    ``noise_masks`` ({"impulse": {...}, "transient": {...}, "attenuated":
+    {...}}, each value the keywords of the ``clean.mask_*`` function): the
+    stream runs two-pass, each file calibrated to a full Sv dataset (any
+    mode) that :func:`run_survey_mvbs` masks and bins, one file in memory
+    at a time.
+
     Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): AZFP /
-    AZFP6 (item 11), ``freq_diff`` (7), ``noise_masks`` (8), ``workers``
-    (9) and ``mesh`` (10).
+    AZFP6 (item 11), ``workers`` (9) and ``mesh`` (10).
 
     Returns an MVBS Dataset on the global (ping_time bin, range bin) grid;
     ``attrs["device"]`` names the device and ``attrs["stage_timing"]`` holds
@@ -357,8 +481,8 @@ def run_survey_mvbs_from_raw(
             "run_survey_mvbs_from_raw supports EK60/ES70 and EK80/ES80/EA640, "
             f"not {sonar_model!r}"
         )
-    _refuse_unported(freq_diff=freq_diff, noise_masks=noise_masks, workers=workers or None,
-                     mesh=mesh)
+    _refuse_unported(workers=workers or None, mesh=mesh)
+    _check_noise_masks(noise_masks)
     complex_mode = encode_mode == "complex" or waveform_mode in ("BB", "FM")
     if sonar_model in _EK60_MODELS and complex_mode:
         raise ValueError("EK60-style data can only be streamed in CW power mode")
@@ -368,10 +492,15 @@ def run_survey_mvbs_from_raw(
     raw_files = list(raw_files)
     if not raw_files:
         raise ValueError("no raw files provided")
+    if noise_masks is not None:
+        return _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin,
+                                 chunk_pings, env_params, cal_params, use_swap, xml_path,
+                                 timer, waveform_mode, encode_mode, freq_diff, noise_masks, dev)
     if complex_mode:
         return _run_survey_mvbs_complex(
             raw_files, sonar_model, waveform_mode, encode_mode, range_bin_m, ping_time_bin,
             chunk_pings, env_params, cal_params, use_swap, xml_path, timer, device_fused, dev,
+            freq_diff,
         )
 
     if sonar_model in _EK60_MODELS:
@@ -384,7 +513,7 @@ def run_survey_mvbs_from_raw(
             return CalibrateEK80(ed, env_params, cal_params, waveform_mode="CW",
                                  encode_mode="power")
 
-    if prefetch and sonar_model in _EK60_MODELS:
+    if prefetch and freq_diff is None and sonar_model in _EK60_MODELS:
         try:
             return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
                                  chunk_pings, env_params, use_swap, xml_path, timer,
@@ -392,11 +521,36 @@ def run_survey_mvbs_from_raw(
         except _ScanUnavailable as e:
             logger.warning(f"extent scan unavailable ({e}); using eager two-pass ingest")
     return _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-                      use_swap, xml_path, timer, make_cal, dev)
+                      use_swap, xml_path, timer, make_cal, dev, freq_diff)
+
+
+def _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
+                      env_params, cal_params, use_swap, xml_path, timer, waveform_mode,
+                      encode_mode, freq_diff, noise_masks, dev):
+    """Two-pass raw stream for ``noise_masks``: the clean masks need each
+    file's whole Sv, so every file calibrates to a full Sv dataset (any
+    mode) on demand and :func:`run_survey_mvbs` masks and bins it,
+    re-decoding in its binning pass (one file in host memory)."""
+    from ..calibrate.api import compute_Sv
+
+    def provider(f):
+        def open_sv():
+            ed = open_raw(f, sonar_model=sonar_model, use_swap=use_swap, xml_path=xml_path)
+            kw = dict(env_params=env_params, cal_params=cal_params, device=dev)
+            if waveform_mode or encode_mode:
+                kw.update(waveform_mode=waveform_mode, encode_mode=encode_mode)
+            return compute_Sv(ed, **kw)
+        return open_sv
+
+    return run_survey_mvbs([provider(f) for f in raw_files], range_bin_m=range_bin_m,
+                           ping_time_bin=ping_time_bin, chunk_pings=chunk_pings, timer=timer,
+                           freq_diff=freq_diff, noise_masks=noise_masks, reopen=True,
+                           device=dev)
 
 
 def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
-    """Decode one file and resolve its sonar-equation inputs (host)."""
+    """Decode one file and resolve its sonar-equation inputs (host): power,
+    dr, shift, alpha, offset, ping_time, channels, frequency_nominal."""
     ed = open_raw(f, sonar_model=sonar_model, use_swap=use_swap, xml_path=xml_path)
     try:
         cal = make_cal(ed)
@@ -406,12 +560,14 @@ def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
     chans = list(cal.beam.coords["channel"].values)
     power, dr, shift, alpha, offset, _ = cal._power_cal_inputs("Sv")
     power, dr, shift, alpha, offset = _sanitize_power_cal_inputs(power, dr, shift, alpha, offset)
-    return power, dr, shift, alpha, offset, pt, chans
+    freq = np.asarray(cal.beam["frequency_nominal"].values, dtype="f8")
+    return power, dr, shift, alpha, offset, pt, chans, freq
 
 
 def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-               use_swap, xml_path, timer, make_cal, dev):
-    """Two-pass path: decode every file, fix the global grids, then stream."""
+               use_swap, xml_path, timer, make_cal, dev, freq_diff=None):
+    """Two-pass path: decode every file, fix the global grids, then stream
+    (every chunk through the masked step when ``freq_diff`` is set)."""
     loaded = []
     with timer.stage("ingest"):
         for f in raw_files:
@@ -433,13 +589,14 @@ def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
     x_ids = [_global_ping_bins(item[5].astype("i8"), ping_edges_i8, n_x) for item in loaded]
     window = _widest_window(x_ids, chunk_pings)
 
+    fd = _resolve_freq_diff(freq_diff, chans, loaded[0][7])
     acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
     R_max = max(item[0].shape[2] for item in loaded)
     streamer = _PowerChunkStreamer(len(chans), chunk_pings, R_max, window, n_r,
                                    range_edges, acc, timer, dev)
-    for (power, dr, shift, alpha, offset, _, _), x_idx_all in zip(loaded, x_ids):
+    for (power, dr, shift, alpha, offset, *_), x_idx_all in zip(loaded, x_ids):
         streamer.stream_file(power, dr, shift, alpha, offset, x_idx_all,
-                             _is_uniform(dr, shift))
+                             _is_uniform(dr, shift), fd)
     sums, counts = acc.finish()
     return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
 
@@ -509,7 +666,7 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
         if len(raw_files) > 1:
             warm_ex.submit(_warm, raw_files[1])
         for i in range(len(raw_files)):
-            power, dr, shift, alpha, offset, pt, chans = fut.result()
+            power, dr, shift, alpha, offset, pt, chans, _ = fut.result()
             if i + 1 < len(raw_files):
                 fut = ex.submit(load, raw_files[i + 1])
             if i + 2 < len(raw_files):
@@ -565,7 +722,7 @@ def _n_filter_times(ed):
 
 def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode, range_bin_m,
                              ping_time_bin, chunk_pings, env_params, cal_params, use_swap,
-                             xml_path, timer, device_fused, dev):
+                             xml_path, timer, device_fused, dev, freq_diff=None):
     """EK80 complex / broadband raw -> MVBS.
 
     Per chunk of pings the beam group is ping-sliced and ``compute_Sv`` runs
@@ -576,6 +733,13 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     (``calibrate.api.epoch_slice_dicts``): resolving epochs per chunk would
     apply the wrong filters to a chunk without its epoch's timestamp.
     ``device_fused`` hands over to :func:`_run_complex_fused`.
+
+    With ``freq_diff`` each chunk's Sv is masked across channels on the
+    device before the bins; a multi-``filter_time`` file then calibrates
+    whole (compute_Sv's epoch merge keeps the channels sample-aligned) and
+    streams in chunks of that Sv, also when ``device_fused`` asked for the
+    fused path, which cannot see another channel's epoch (a warning says
+    so).
     """
     from ..calibrate.api import compute_Sv, epoch_slice_dicts
     from ..echodata.simrad import retrieve_correct_beam_group
@@ -600,9 +764,17 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
                                      ping_time_bin)
     n_x = len(ping_edges) - 1
+    fd = None
+    if freq_diff is not None:
+        fd = _resolve_freq_diff(freq_diff, chans,
+                                eds[0][beam_paths[0]].get("frequency_nominal"))
+    multi_epoch = [_n_filter_times(ed) > 1 for ed in eds]
     if device_fused:
-        return _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pings,
-                                  sv_kw, timer, dev)
+        if fd is None or not any(multi_epoch):
+            return _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m,
+                                      chunk_pings, sv_kw, timer, dev, fd=fd)
+        logger.warning("device_fused freq_diff with multi-filter_time files uses the "
+                       "chunked compute_Sv path")
 
     # global range extent: calibrate one probe ping per file, scaled by the
     # file's worst sample-interval ratio
@@ -619,8 +791,8 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     edges_i8 = ping_edges.astype("i8")
 
     x_ids, epoch_plans = [], []
-    for ed, bp, pt in zip(eds, beam_paths, ping_times):
-        if _n_filter_times(ed) > 1:
+    for ed, bp, pt, multi in zip(eds, beam_paths, ping_times, multi_epoch):
+        if multi and fd is None:
             plan = []
             for sd in epoch_slice_dicts(ed[bp], ed["Vendor_specific"]):
                 keep = pt >= np.datetime64(sd["beam_group_start_time"], "ns")
@@ -646,30 +818,42 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
     ch_pos = {str(c): i for i, c in enumerate(chans)}
     enc_edges = binning._to_dev(np.arange(n_r + 1), dev)
+    masked = _fd_mask(fd) if fd is not None else (lambda sv: sv)
 
-    def bin_chunk(ds, x_rel):
-        """Bin one calibrated chunk: membership on the host in float64,
-        sums on the device."""
-        sv = np.asarray(ds["Sv"].values, dtype="f4")
-        er = np.asarray(ds["echo_range"].values, dtype="f8")
+    def bin_chunk(sv, er, x_rel):
+        """Bin one calibrated chunk (Sv [C, P, R], its echo_range):
+        membership on the host in float64, the mask and sums on the device."""
+        sv = np.asarray(sv, dtype="f4")
+        er = np.asarray(er, dtype="f8")
         er = binning.exact_bin_encode_np(np.broadcast_to(er, sv.shape), range_edges)[0]
         s, c, _ = binning.binned_window_partials(
-            binning._to_dev(sv, dev), binning._to_dev(er, dev), enc_edges,
+            masked(binning._to_dev(sv, dev)), binning._to_dev(er, dev), enc_edges,
             binning._to_dev(x_rel, dev, "i4"), window, uniform_er=uniform)
         return s, c
 
-    for ed, bp, plan in zip(eds, beam_paths, epoch_plans):
+    def chunk_sv(ds):
+        return ds["Sv"].values, ds["echo_range"].values
+
+    for ed, bp, plan, multi in zip(eds, beam_paths, epoch_plans, multi_epoch):
         if isinstance(plan, list):
-            _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos, bin_chunk,
-                                   timer)
+            _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos,
+                                   lambda ds, x_rel: bin_chunk(*chunk_sv(ds), x_rel), timer)
             continue
+        if multi:  # freq_diff: the whole file's Sv, every channel on one grid
+            with timer.stage("chunk_calibrate"):
+                sv_full, er_full = chunk_sv(compute_Sv(ed, **sv_kw))
+                er_full = np.broadcast_to(er_full, sv_full.shape)
         for lo in range(0, len(plan), chunk_pings):
             hi = min(lo + chunk_pings, len(plan))
             x_base = int(plan[lo])
             with timer.stage("chunk_calibrate"):
-                ds = compute_Sv(_slice_echodata_pings(ed, bp, slice(lo, hi)), **sv_kw)
+                if multi:
+                    sv, er = sv_full[:, lo:hi], er_full[:, lo:hi]
+                else:
+                    sv, er = chunk_sv(compute_Sv(_slice_echodata_pings(ed, bp, slice(lo, hi)),
+                                                 **sv_kw))
             with timer.stage("device_binning"):
-                s, c = bin_chunk(ds, plan[lo:hi] - x_base)
+                s, c = bin_chunk(sv, er, plan[lo:hi] - x_base)
             acc.push(s, c, x_base)
     sums, counts = acc.finish()
     return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
@@ -702,7 +886,7 @@ def _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos, bin_ch
 
 
 def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pings, sv_kw,
-                       timer, dev):
+                       timer, dev, fd=None):
     """Fused complex-channel streaming: one device pass per (channel, chunk)
     does pulse compression, received power, Sv and the window bins
     (``ops/bb_pipeline.bb_chunk_window_partials``), float32 end to end.
@@ -710,11 +894,15 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
     Calibration resolves per file, or per (channel, filter epoch) for
     multi-``filter_time`` files with the chunked path's partition: each
     work item owns one parameter set and one replica per channel.
+    With ``fd`` (single-``filter_time`` files) each channel's chunk runs to
+    Sv alone (``bb_chunk_sv``), the chunk's channels stack on the device in
+    survey order, the cross-channel mask applies, and one binning pass
+    takes the stack.
     """
     from ..calibrate.api import epoch_slice_dicts
     from ..calibrate.ek80 import CalibrateEK80
     from ..calibrate.ek80_complex import get_norm_fac
-    from ..ops.bb_pipeline import bb_chunk_window_partials
+    from ..ops.bb_pipeline import bb_chunk_sv, bb_chunk_window_partials
 
     waveform_mode = sv_kw["waveform_mode"]
     do_pc = waveform_mode in ("BB", "FM")
@@ -769,10 +957,36 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
             k0 = np.maximum(np.floor(scal["shift"] / np.maximum(scal["dr"], 1e-30)) + 1,
                             0).astype("i4")
             uniform_er = bool(np.all(dr == dr[:, :1]))
+            reps = []
+            for cid in ch_ids:
+                rep = np.flipud(np.conj(np.asarray(scal["tx"][cid])))
+                reps.append((
+                    *(np.ascontiguousarray(a, dtype="f4") for a in (rep.real, rep.imag)),
+                    np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0,
+                ))
+        if fd is not None:
+            masked = _fd_mask(fd)
+            r_edges_t = binning._to_dev(r_edges_f4, dev)
+            for lo in range(0, n_ping, chunk_pings):
+                sl = slice(lo, min(lo + chunk_pings, n_ping))
+                x_base = int(x_idx_all[lo])
+                with timer.stage("device_fused"):
+                    by_pos = {}
+                    for ci, cid in enumerate(ch_ids):
+                        hr, hi, inv_norm = reps[ci]
+                        by_pos[ch_pos[cid]] = bb_chunk_sv(
+                            bs_r_all[ci, sl], bs_i_all[ci, sl], hr, hi, inv_norm,
+                            z_coef[ci, sl], dr[ci, sl], shift[ci, sl], alpha[ci, sl],
+                            offset[ci, sl], k0[ci, sl], valid_len[ci, sl], do_pc, device=dev)
+                    sv = masked(torch.stack([by_pos[i][0] for i in range(len(chans))]))
+                    er = torch.stack([by_pos[i][1] for i in range(len(chans))])
+                    s, c, _ = binning.binned_window_partials(
+                        sv, er, r_edges_t, binning._to_dev(x_idx_all[sl] - x_base, dev, "i4"),
+                        window, uniform_er=uniform_er)
+                acc.push(s, c, x_base)
+            continue
         for ci, cid in enumerate(ch_ids):
-            rep = np.flipud(np.conj(np.asarray(scal["tx"][cid])))
-            hr, hi = (np.ascontiguousarray(a, dtype="f4") for a in (rep.real, rep.imag))
-            inv_norm = np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0
+            hr, hi, inv_norm = reps[ci]
             for lo in range(0, n_ping, chunk_pings):
                 sl = slice(lo, min(lo + chunk_pings, n_ping))
                 x_base = int(x_idx_all[lo])
@@ -857,14 +1071,24 @@ def run_survey_mvbs(
     the others take the per-ping route, where each sample adds into the bin
     the host's float64 membership gives it (``binned_window_partials``; the
     JAX package's prefix sums there lose quiet bins).
-    Not ported yet (``NotImplementedError``): ``mesh``, ``freq_diff``,
-    ``noise_masks`` (ROADMAP Queue 1 items 10, 7, 8).
+    freq_diff : frequency-differencing criterion ('"chA" - "chB" > 3dB',
+        '120kHz - 38kHz > 6dB', or a dict); each chunk's Sv is masked
+        across channels on the device before the bins (apply_mask
+        semantics: a masked sample joins no bin on any channel).
+    noise_masks : {"impulse": {...}, "transient": {...}, "attenuated":
+        {...}}, each value the keywords of the matching ``clean.mask_*``
+        function, run on ``device`` over each whole file; a sample any
+        mask flags joins no bin (the composition clean.mask_* ->
+        apply_mask -> binning, per file).
+    Not ported yet (``NotImplementedError``): ``mesh`` (ROADMAP Queue 1
+    item 10).
 
     Returns an MVBS Dataset on the union (ping_time bin, range bin) grid;
     ``attrs`` carry ``device``, ``routes`` (one per source, "grid" or
     "per_ping") and ``stage_timing``.
     """
-    _refuse_unported(mesh=mesh, freq_diff=freq_diff, noise_masks=noise_masks)
+    _refuse_unported(mesh=mesh)
+    _check_noise_masks(noise_masks)
     dev = resolve_device(device)
     timer = timer or StageTimer()
     range_bin_m = _resolve_bin_m(range_bin, range_bin_m)
@@ -873,11 +1097,13 @@ def run_survey_mvbs(
     # pass 1: global extents and channels
     datasets = [None] * len(providers)
     ping_times = []
-    chans = None
+    chans = freq_nom = None
     r_max = 0.0
     with timer.stage("scan_extents"):
         for i, provider in enumerate(providers):
             ds = provider()
+            if chans is None:
+                freq_nom = ds.get("frequency_nominal")
             chans = _check_channels(chans, ds)
             ping_times.append(np.asarray(ds.coords["ping_time"].values, dtype="datetime64[ns]"))
             r_max = max(r_max, float(np.nanmax(np.asarray(ds[range_var].values, dtype="f8"))))
@@ -894,6 +1120,8 @@ def run_survey_mvbs(
     x_ids = [_global_ping_bins(pt.astype("i8"), edges_i8, n_x) for pt in ping_times]
     window = _widest_window(x_ids, chunk_pings)
 
+    fd = _resolve_freq_diff(freq_diff, chans, freq_nom)
+    masked = _fd_mask(fd) if fd is not None else (lambda sv: sv)
     acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
     enc_edges = binning._to_dev(np.arange(n_r + 1), dev)
     routes = []
@@ -902,8 +1130,10 @@ def run_survey_mvbs(
         if ds is None:  # reopen: one file in host memory at a time
             with timer.stage("reopen"):
                 ds = providers[i]()
+        sv_all = np.asarray(ds["Sv"].values, dtype="f4")
+        if noise_masks:
+            sv_all = _apply_noise_masks(ds, sv_all, noise_masks, timer, dev)
         with timer.stage("host_prep"):
-            sv_all = np.asarray(ds["Sv"].values, dtype="f4")
             er_all = np.asarray(ds[range_var].values, dtype="f8")
             if er_all.shape != sv_all.shape:
                 er_all = np.broadcast_to(er_all, sv_all.shape)
@@ -918,7 +1148,7 @@ def run_survey_mvbs(
                 with timer.stage("encode"):
                     er_enc = binning.exact_bin_encode_np(er_all[:, lo:hi], range_edges)[0]
             with timer.stage("device_binning"):
-                sv = binning._to_dev(sv_all[:, lo:hi], dev)
+                sv = masked(binning._to_dev(sv_all[:, lo:hi], dev))
                 x_rel = binning._to_dev(x_idx_all[lo:hi] - x_base, dev, "i4")
                 if use_grid:
                     s, c, _ = binning.binned_window_partials_grid(sv, row, enc_edges, x_rel,
@@ -979,11 +1209,14 @@ def run_survey_nasc(
     Files on a ping-invariant depth grid take the grid route (one encoded
     depth row, and the height sums as that row times each bin's ping
     count); the others the per-ping route, as in :func:`run_survey_mvbs`.
-    Not ported yet (``NotImplementedError``): ``mesh``, ``noise_masks``
-    (ROADMAP Queue 1 items 10, 8).  ``attrs`` carry ``device`` and
-    ``routes`` as in :func:`run_survey_mvbs`.
+    ``noise_masks`` as in :func:`run_survey_mvbs`: the ``clean`` masks run
+    on each whole file and a flagged sample joins no bin.
+    Not ported yet (``NotImplementedError``): ``mesh`` (ROADMAP Queue 1
+    item 10).  ``attrs`` carry ``device`` and ``routes`` as in
+    :func:`run_survey_mvbs`.
     """
-    _refuse_unported(mesh=mesh, noise_masks=noise_masks)
+    _refuse_unported(mesh=mesh)
+    _check_noise_masks(noise_masks)
     dev = resolve_device(device)
     timer = timer or StageTimer()
     range_bin_m = _parse_x_bin(range_bin, "range_bin")
@@ -1050,8 +1283,10 @@ def run_survey_nasc(
         if ds is None:
             with timer.stage("reopen"):
                 ds = providers[i]()
+        sv_all = np.asarray(ds["Sv"].values, dtype="f4")
+        if noise_masks:
+            sv_all = _apply_noise_masks(ds, sv_all, noise_masks, timer, dev)
         with timer.stage("host_prep"):
-            sv_all = np.asarray(ds["Sv"].values, dtype="f4")
             depth = np.asarray(ds["depth"].values, dtype="f8")
             depth_b = np.broadcast_to(
                 _conform_range(depth, ds, "depth", sv_all.shape), sv_all.shape)

@@ -5,9 +5,11 @@ from a ``sys.meta_path`` finder, imports echopype_torch and runs the
 raw->MVBS survey, ``open_raw`` -> ``compute_Sv`` -> ``compute_MVBS`` /
 ``compute_MVBS_index_binning``, the fused survey step, and
 ``consolidate.add_location`` / ``add_depth`` -> ``run_survey_mvbs`` /
-``run_survey_nasc``, and EK80: ``open_raw`` -> BB ``compute_Sv`` and the
-fused BB survey (``device_fused=True``), on the CPU; none of the four may
-be loaded afterwards.
+``run_survey_nasc``, EK80: ``open_raw`` -> BB ``compute_Sv`` and the
+fused BB survey (``device_fused=True``), and the masks: ``clean.mask_*``,
+``mask.frequency_differencing`` -> ``apply_mask``, and the survey
+streamers with ``freq_diff`` and ``noise_masks``, on the CPU; none of the
+four may be loaded afterwards.
 An AST scan holds the package's sources and ``chip_smoke.py`` to the same
 rule, including imports inside functions.
 """
@@ -82,6 +84,19 @@ _SCRIPT = textwrap.dedent(
                                         encode_mode="complex", device_fused=True,
                                         range_bin="0.2m", ping_time_bin="2s", device="cpu")
     assert np.isfinite(bb["Sv"].values).any() and np.isfinite(fused["Sv"].values).any()
+    imp = et.clean.mask_impulse_noise(sv, depth_bin="4m", num_side_pings=2, device="cpu")
+    trn = et.clean.mask_transient_noise(sv, depth_bin="6m", num_side_pings=3,
+                                        exclude_above="2m", device="cpu")
+    fd = et.mask.frequency_differencing(sv, freqABEq="38kHz - 18kHz > 3.0dB")
+    masked = et.mask.apply_mask(sv, fd)
+    assert imp.values.shape == trn.values.shape == sv["Sv"].values.shape
+    assert np.isnan(masked["Sv"].values).sum() > np.isnan(sv["Sv"].values).sum()
+    fd_raw = et.run_survey_mvbs_from_raw([path], range_bin="5m", ping_time_bin="10s",
+                                         chunk_pings=16, freq_diff="38kHz - 18kHz > 3.0dB",
+                                         device="cpu")
+    nm = et.run_survey_mvbs([sv], range_bin="5m", ping_time_bin="10s", device="cpu",
+                            noise_masks={"impulse": dict(depth_bin="4m")})
+    assert np.isfinite(fd_raw["Sv"].values).any() and np.isfinite(nm["Sv"].values).any()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("LOADED", loaded)
     """

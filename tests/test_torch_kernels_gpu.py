@@ -35,6 +35,13 @@ EK80: the matched filter (``ops/matched_filter.py``) on the card at 2,000
 pings x 4 sectors x 8,192 samples against the host float64 convolution,
 with TF32 off inside its matmul (float32 and float64 products); the fused BB chunk
 (``ops/bb_pipeline.py``) run twice bit-identical and against the CPU.
+
+Masks: each window program of ``ops/windows.py`` (pooled transient mask on
+host membership runs and on value bands, impulse mask, per-ping depth
+binning, attenuated mask) and the freq-diff survey step run twice
+bit-identical on the card and against the CPU (Sv within 1e-4 dB with the
+same NaN mask, masks equal, counts exact); the float64 pooling of a grid
+that varies by ping equals the CPU bit for bit.
 """
 
 import numpy as np
@@ -482,3 +489,110 @@ def test_fused_bb_chunk_rerun_bit_identical(cuda, uniform_er):
     np.testing.assert_array_equal(a[1].cpu().numpy(), c_c.numpy())
     np.testing.assert_allclose(a[0].cpu().numpy(), s_c.numpy(), rtol=1e-4, atol=1e-30)
     assert (c_c > 0).any()
+
+
+# ----------------------------------------------- clean masks and freq_diff
+def _windows_cases(kind):
+    """(program, args, kwargs) of ops/windows.py on 3 x 300 x 500 Sv with
+    noise: a round-number grid (host membership), a non-monotone grid
+    (value bands), a per-ping bin index."""
+    from echopype_torch.ops import windows as tw
+
+    rng = np.random.default_rng(11)
+    C, P, R = 3, 300, 500
+    sv = rng.normal(-75.0, 4.0, (C, P, R)).astype("f4")
+    sv[0, 100] += 30.0
+    sv[1, 150:153, 200:] += 20.0
+    sv[0, 200:205, 100:180] -= 25.0
+    sv[2, :, 450:] = np.nan
+    grid = np.broadcast_to(np.arange(R) * 0.25, (C, R)).copy()
+    if kind == "pool_idx":
+        lo, hi, v_r, halo = tw.grid_window_members(grid, 2.0, 3.0)
+        return tw.transient_mask_grid_idx_device, (
+            sv, np.isfinite(grid).astype("f4"), lo, hi, v_r, 25, 8.0), dict(range_halo=halo)
+    if kind == "pool_values":
+        g = grid.astype("f4")
+        g[:, 60:64] = g[:, 60:64][:, ::-1]
+        return tw.pool_sv_nanmean_grid_device, (sv, g, 2.0, 10, 1.0), dict(range_halo=0)
+    edges = np.arange(0, R * 0.25 + 5.0, 5.0)
+    idx = np.clip(np.digitize(grid, edges) - 1, 0, len(edges) - 2).astype("i4")
+    if kind == "impulse":
+        return tw.impulse_mask_grid_device, (sv, idx, len(edges) - 1, 2, 10.0), {}
+    if kind == "downsample_ping":
+        heave = rng.uniform(0, 1.0, (1, P, 1))
+        bins = np.clip(np.digitize(np.arange(R) * 0.25 + heave + np.zeros((C, 1, 1)), edges)
+                       - 1, 0, len(edges) - 2).astype("i4")
+        return tw.downsample_upsample_depth_device, (sv, bins, len(edges) - 1), {}
+    widths = np.array([80, 81, 60], dtype="i4")  # even and odd slab medians
+    return tw.attenuated_ping_mask_grid_device, (
+        sv, np.array([100, 120, 140], "i4"), widths, 81, 15, -6.0), dict(chunk=64)
+
+
+@pytest.mark.parametrize("kind", ["pool_idx", "pool_values", "impulse", "downsample_ping",
+                                  "attenuated"])
+def test_windows_programs_card_equals_cpu(cuda, kind):
+    """Each device program of ops/windows.py on the card: twice bit-identical,
+    and against device="cpu" (Sv within 1e-4 dB, NaN masks and masks equal)."""
+    fn, args, kw = _windows_cases(kind)
+    a = fn(*args, **kw, device=cuda)
+    b = fn(*args, **kw, device=cuda)
+    torch.cuda.synchronize()
+    want = fn(*args, **kw, device="cpu")
+    for g, h, w in zip(*(x if isinstance(x, tuple) else (x,) for x in (a, b, want))):
+        assert g.is_cuda
+        assert torch.equal(g, h) if g.dtype == torch.bool else torch.equal(_bits(g), _bits(h))
+        g, w = g.cpu().numpy(), w.numpy()
+        if g.dtype == bool:
+            np.testing.assert_array_equal(g, w)
+        else:
+            np.testing.assert_array_equal(np.isnan(g), np.isnan(w))
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-4, equal_nan=True)
+
+
+def test_freqdiff_step_card_equals_cpu(cuda):
+    """``sv_mvbs_window_partials_freqdiff`` at 5 x 2,000 x 4,000 int16: twice
+    bit-identical on the card, counts equal to the CPU's, sums rtol 1e-5,
+    one launch counted per call."""
+    from echopype_torch.parallel import pipeline as tp
+
+    rng = np.random.default_rng(12)
+    C, P, R = 5, 2000, 4000
+    power = rng.integers(-9000, -2000, (C, P, R)).astype("i2")
+    dr = np.full((C, P), 0.1894, "f4")
+    shift = np.full((C, P), 0.38, "f4")
+    alpha = np.linspace(0.002, 0.05, C, dtype="f4")[:, None] * np.ones((1, P), "f4")
+    offset = np.full((C, P), -20.0, "f4")
+    vl = np.full((C, P), R, "i4")
+    vl[:, 7] = 1500
+    x_rel = (np.arange(P) // 100).astype("i4")
+    edges = np.arange(0, R * 0.1894 + 20.0, 20.0).astype("f4")
+    args = (power, dr, shift, alpha, offset, vl, x_rel, edges, 20, len(edges) - 1,
+            1, 0, ">", 3.0)
+    tp.LAUNCHES["freqdiff_step"] = 0
+    a = tp.sv_mvbs_window_partials_freqdiff(*args, device=cuda)
+    b = tp.sv_mvbs_window_partials_freqdiff(*args, device=cuda)
+    torch.cuda.synchronize()
+    assert tp.LAUNCHES["freqdiff_step"] == 2
+    for g, h in zip(a, b):
+        assert torch.equal(_bits(g), _bits(h))
+    s, c = tp.sv_mvbs_window_partials_freqdiff(*args, device="cpu")
+    np.testing.assert_array_equal(a[1].cpu().numpy(), c.numpy())
+    np.testing.assert_allclose(a[0].cpu().numpy(), s.numpy(), rtol=1e-5, atol=1e-30)
+    assert 0 < c.sum() < C * P * R
+
+
+def test_exact_pooling_card_equals_cpu(cuda):
+    """``pool_sv_nanmean_exact_device`` (float64 searches, gathers and adds
+    for a depth grid that varies by ping) on the card equals the CPU bit for
+    bit at 3 x 120 x 2,000."""
+    from echopype_torch.ops import windows as tw
+
+    rng = np.random.default_rng(13)
+    C, P, R = 3, 120, 2000
+    sv = rng.normal(-75.0, 4.0, (C, P, R))
+    sv[1, 40:43, 900:] += 20.0
+    depth = np.arange(R) * 0.1894 + rng.uniform(0.0, 0.4, (1, P, 1)) + np.zeros((C, 1, 1))
+    got = tw.pool_sv_nanmean_exact_device(sv, depth, 10.0, 25, 50.0, device=cuda)
+    want = tw.pool_sv_nanmean_exact_device(sv, depth, 10.0, 25, 50.0, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert np.isfinite(got).any()

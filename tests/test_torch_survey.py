@@ -120,17 +120,20 @@ def test_corrupt_file_falls_back_to_eager(raw_files, tmp_path):
 
 @pytest.mark.parametrize(
     "kw, item",
-    [(dict(mesh=object()), 10), (dict(freq_diff="38kHz - 18kHz > 3dB"), 7),
-     (dict(workers=2), 9), (dict(noise_masks={"impulse": {}}), 8),
+    [(dict(mesh=object()), 10), (dict(freq_diff="38kHz - 18kHz > 3dB", mesh=object()), 10),
+     (dict(workers=2), 9), (dict(noise_masks={"impulse": {}}, workers=2), 9),
      (dict(sonar_model="EK80", waveform_mode="BB", encode_mode="complex",
-           freq_diff="70kHz - 120kHz > 3dB"), 7),
+           freq_diff="70kHz - 120kHz > 3dB", workers=2), 9),
      (dict(sonar_model="EK80", device_fused=True, mesh=object()), 10),
-     (dict(sonar_model="ES80", noise_masks={"transient": {}}), 8),
+     (dict(sonar_model="ES80", noise_masks={"transient": {}}, mesh=object()), 10),
      (dict(sonar_model="AZFP"), 11), (dict(sonar_model="AZFP6"), 11)],
     ids=["mesh", "freq_diff", "workers", "noise_masks", "complex_freq_diff",
          "device_fused_mesh", "es80_noise_masks", "azfp", "azfp6"],
 )
 def test_unported_options_raise(raw_files, kw, item):
+    """``mesh`` (ROADMAP Queue 1 item 10), ``workers`` (9) and AZFP (11) raise;
+    ``freq_diff`` and ``noise_masks`` are ported, and an unported option asked
+    alongside them still raises."""
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         et.run_survey_mvbs_from_raw([raw_files["ragged"]], device="cpu", **kw)
 
