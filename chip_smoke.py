@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive echopype_torch's survey, Sv-grid, masking and EK80 paths once on a CUDA card.
+"""Drive echopype_torch's survey, Sv-grid, masking, EK80 and AZFP paths once on a CUDA card.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA card (H100), nvcc and PyTorch built for CUDA:
@@ -25,6 +25,10 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    at two coarse windows (W = 2, most of the chunk in one window, so the
    windows' slab partials are combined);
 4. K2 (``window_partials``) the same two ways, with dr varying by ping;
+   then K1's and K2's float32 instances (``window_partials_uniform_f32``,
+   ``window_partials_f32``) the same way on float32 dB power of the same
+   shape (400 MB), whose short pings are NaN past their valid length and
+   one ping all NaN;
 5. K3 (``sv_bin_partials``) at the full width, 5 x 5,000 x 4,000 float32
    dB power with a NaN suffix on every 97th ping and scattered interior
    NaNs, dr 0.18944 m, 20 m range bins, against its plain twin on the card:
@@ -100,11 +104,30 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    the last range bin, tests/test_survey.py:536-538), K1 + K2 launched
    once per power-mode chunk, nothing launched on cpu; walls, stage
    seconds and pings/s of every run;
-12. print the matched filter's and the masks' device programs (plain
+12. AZFP and the other instruments (``azfp``): three hourly files of a
+   four-frequency AZFP (38/125/200/455 kHz, 1,000/1,000/800/600 bins, 1 Hz,
+   3,600 pings each; the script's own writer of tests/synth_azfp.py's
+   header): ``open_raw`` and ``compute_Sv`` on one file, card and CPU
+   bit-identical (host float64); ``run_survey_mvbs_from_raw`` (5 m x 20 s,
+   chunks of 5,000) over the three on the card twice (bit-identical) and
+   on the CPU (1e-4 dB, identical NaN masks and coordinates), one K2-f32
+   launch a chunk and no other K1/K2 launch, and against compute_Sv ->
+   compute_MVBS on the card within rtol 2e-3 / atol 5e-2
+   (tests/test_survey.py:284); the same survey with
+   ``freq_diff="200kHz - 38kHz > 3.0dB"`` and, on one file, with
+   ``noise_masks`` (card vs CPU, bins excused only where a sample's mask
+   differs within 1e-4 dB); one tests/test_azfp6.py file (3,600 pings,
+   1,000 bins) through the survey on cuda vs cpu; ``compute_Sv`` with
+   tests/test_ecs.py's ECS text (SourceCals added for file A's other three
+   channels) on A's first 2,000 pings, equal on the card to the same
+   parameters given explicitly and within 1e-4 dB of the CPU; ``open_raw``
+   of one tests/test_ad2cp.py file;
+13. print the matched filter's and the masks' device programs (plain
    PyTorch, not a Pallas kernel's port) with launches and timings, then the
    kernel table as one JSON line
    (launches on the main paths, the survey's and the ek80 power leg's for
-   K1 / K2; error, kernel / plain twin ms, bound ms and what sets it; no
+   K1 / K2, the AZFP survey's for their float32 instances; error, kernel /
+   plain twin ms, bound ms and what sets it; no
    single PyTorch call computes any of the four functions, so
    ``library_ms`` is null), then the result line ``{"ok": true, "device":
    {...}}`` last.
@@ -113,9 +136,11 @@ Imports nothing of JAX.  The synthetic files are written under ``build/``
 in the checkout and removed at the end.
 """
 
+import ast
 import json
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -168,6 +193,20 @@ BB_FD_MARGIN_DB = 1e-3  # broadband Sv, card vs CPU: EK80_CPU_DB["BB"]
 SURVEY_MASKS = {"impulse": {}, "transient": {},
                 "attenuated": {"attenuation_signal_threshold": "-8.0dB"}}
 RAW_MASKS = {k: dict(v, range_var="echo_range") for k, v in SURVEY_MASKS.items()}
+# the azfp phase: four-frequency AZFP moorings (the OOI Endurance Array's
+# 38/125/200/455 kHz units), 1 Hz pings in hourly files, bins ragged across
+# channels; pulse lengths from parse_azfp.SV_OFFSET's table
+AZFP_FREQS_KHZ = (38, 125, 200, 455)
+AZFP_PULSE_US = (1000, 300, 300, 300)
+AZFP_BINS = (1000, 1000, 800, 600)
+AZFP_PINGS, AZFP_FILES = 3600, 3
+AZFP_LOCKOUT, AZFP_SAMPLES_PER_BIN, AZFP_DIG_RATE = 8, 8, 64000
+AZFP_ENV = {"salinity": 32.0, "pressure": 60.0}  # tests/test_survey.py:258
+AZFP_GRID = dict(range_bin="5m", ping_time_bin="20s", chunk_pings=5000)
+AZFP_FD_EQ = "200kHz - 38kHz > 3.0dB"
+COMPOSED_RTOL, COMPOSED_ATOL_DB = 2e-3, 5e-2  # tests/test_survey.py:284
+AZFP6_BINS = 1000
+ECS_PINGS = 2000  # the head of file A calibrated with an ECS file
 # H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.  The latter counts an FMA
 # as two: the card issues half as many instructions, 128 lanes a clock per
@@ -183,9 +222,13 @@ EXPF_INSTR, LOG10F_INSTR = 8, 25
 # kernel issues): the int16 -> float conversion (K1, K2) or the sample's
 # range k dr - shift (K3, K4: 3), the sonar equation's rounded multiplies
 # and adds, the library calls, the adds into the bin sum (and count, K3/K4)
+# float32 dB power (K1_f32, K2_f32) has no conversion and no INDEX2POWER
+# multiply, and selects out a NaN sample before its add
 INSTR_PER_SAMPLE = {
     "K1": 1 + 6 + EXPF_INSTR + 1,
     "K2": 1 + 10 + LOG10F_INSTR + EXPF_INSTR + 1,
+    "K1_f32": 5 + EXPF_INSTR + 2,
+    "K2_f32": 9 + LOG10F_INSTR + EXPF_INSTR + 2,
     "K3": 3 + 5 + LOG10F_INSTR + 1 + EXPF_INSTR + 2,
     "K4": 3 + 3 + 1 + EXPF_INSTR + 2 + 2,
 }
@@ -221,10 +264,14 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def chunk_inputs(seed, vary_dr, ping_bin_s=PING_BIN_S):
-    """One survey chunk at the main path's shape, made from ``seed``."""
+def chunk_inputs(seed, vary_dr, ping_bin_s=PING_BIN_S, f32=False):
+    """One survey chunk at the main path's shape, made from ``seed``: int16
+    indices, or with ``f32`` float32 dB power (the AZFP path's type) whose
+    short pings are NaN past their valid length and one ping is all NaN."""
     rng = np.random.default_rng(seed)
     power = rng.integers(-12000, -2000, (C, P, R), dtype=np.int16)
+    if f32:
+        power = (power * np.float32(0.011758984205624481)).astype("f4")
     dr = np.full((C, P), 256e-6 * 1480.0 / 2.0, "f4")  # 0.18944 m
     if vary_dr:
         dr = (dr * rng.uniform(0.97, 1.03, (C, P))).astype("f4")
@@ -233,6 +280,9 @@ def chunk_inputs(seed, vary_dr, ping_bin_s=PING_BIN_S):
     off = rng.normal(-30.0, 2.0, (C, P)).astype("f4")
     vl = np.full((C, P), R, "i4")
     vl[:, ::97] = rng.integers(0, R, vl[:, ::97].shape)  # some short pings
+    if f32:
+        vl[C // 2, 13] = 0  # one all-NaN ping
+        power[np.arange(R)[None, None, :] >= vl[:, :, None]] = np.nan
     t = 7.0 + np.arange(P)  # 1 Hz pings, not aligned to the bin edges
     ids = (t // ping_bin_s).astype("i4")
     x_rel = ids - ids[0]
@@ -243,11 +293,14 @@ def chunk_inputs(seed, vary_dr, ping_bin_s=PING_BIN_S):
 
 
 def kernel_phase(name, uniform, seed, ping_bin_s=PING_BIN_S):
+    """K1 / K2 (``name`` K1, K2, or K1_f32, K2_f32 for the float32 instances)
+    against the plain twin on the card, timed, with the bound."""
     from echopype_torch.ops import window_partials as wp
     from echopype_torch.parallel.pipeline import (
         closed_bounds_k0_np, closed_window_counts_np, kernel_inputs_from_numpy)
 
-    args = chunk_inputs(seed, vary_dr=not uniform, ping_bin_s=ping_bin_s)
+    args = chunk_inputs(seed, vary_dr=not uniform, ping_bin_s=ping_bin_s,
+                        f32=name.endswith("_f32"))
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     ops = kernel_inputs_from_numpy(*args, uniform=uniform, device=dev)
@@ -279,19 +332,22 @@ def kernel_phase(name, uniform, seed, ping_bin_s=PING_BIN_S):
         ms = cuda_ms(lambda: kernel(**ops))
         plain_ms = cuda_ms(lambda: plain(**plain_ops))
         out = got
-    # each binned valid sample read once (2 bytes), the small operands read
-    # once, the outputs written once
+    # each binned valid sample read once (2 bytes, float32 4), the small
+    # operands read once, the outputs written once
     n_binned = float(c_k.sum())
+    sample_bytes = ops["power"].element_size()
     small = [t for key, t in plain_ops.items() if key != "power"]
-    bound = bound_ms(2 * n_binned + nbytes(*small) + nbytes(*(out if isinstance(out, tuple) else [out])),
+    bound = bound_ms(sample_bytes * n_binned + nbytes(*small)
+                     + nbytes(*(out if isinstance(out, tuple) else [out])),
                      INSTR_PER_SAMPLE[name] * n_binned)
     n_slabs = ops["plan"].shape[0] - args[-1] - 1
     say(name, shape=list(ops["power"].shape), W=args[-1], slabs=n_slabs,
         n_r=ops["bounds"].shape[1] - 1, counts_exact=counts_exact, bit_identical=bit_identical,
         max_abs_err=max_abs, max_rel_err=max_rel, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        power_MB=round(nbytes(ops["power"]) / 1e6, 1),
         bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"],
         share_of_bound=round(bound["bound_ms"] / ms, 3),
-        power_GBps=round(ops["power"].numel() * 2 / 1e6 / ms, 1), h2d_s=round(h2d_s, 3))
+        power_GBps=round(nbytes(ops["power"]) / 1e6 / ms, 1), h2d_s=round(h2d_s, 3))
     if not (counts_exact and bit_identical and max_rel <= SUM_RTOL):
         raise AssertionError(f"{name}: kernel disagrees with its plain twin (W={args[-1]})")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
@@ -358,6 +414,7 @@ def fused_phase(name, with_sv, seed):
     say(name, shape=list(ops["power"].shape), n_r=ops["bounds"].shape[1] - 1,
         counts_exact=counts_exact, bit_identical=bit_identical, **fields,
         max_abs_err=max_abs, max_rel_err=max_rel, ms=round(ms, 4), plain_ms=round(plain_ms, 4),
+        power_MB=round(nbytes(ops["power"]) / 1e6, 1),
         bound_ms=round(bound["bound_ms"], 4), bound_by=bound["bound_by"],
         share_of_bound=round(bound["bound_ms"] / ms, 3), power_GBps=round(power_mb / ms, 1),
         moved_GBps=round(power_mb * (2 if with_sv else 1) / ms, 1))
@@ -474,7 +531,8 @@ def sv_grid_phase(path):
         "compute_MVBS cuda vs cpu": mvbs_nan and mvbs_db <= MVBS_ATOL_DB and finite > 0.9,
         "compute_NASC cuda vs cpu": nasc_nan and nasc_rel <= NASC_RTOL and ok_n.any(),
         "launches": launches == {"sv_bin_partials": 1, "mvbs_partials": 1,
-                                 "window_partials_uniform": 0, "window_partials": 0},
+                                 "window_partials_uniform": 0, "window_partials": 0,
+                                 "window_partials_uniform_f32": 0, "window_partials_f32": 0},
     }
     failed = [k for k, v in checks.items() if not v]
     if failed:
@@ -1073,7 +1131,8 @@ def masks_phase(files, stores):
     checks["raw freq_diff cuda vs cpu"] = (same_nan and err <= MVBS_ATOL_DB and _same_coords(
         fd_runs["cuda"], fd_runs["cpu"], ("channel", "ping_time", "echo_range")))
     checks["raw freq_diff launches"] = fd_launches["cuda"] == {
-        "window_partials_uniform": 0, "window_partials": 0, "freqdiff_step": chunks}
+        "window_partials_uniform": 0, "window_partials": 0, "window_partials_uniform_f32": 0,
+        "window_partials_f32": 0, "freqdiff_step": chunks}
     say("masks_raw_freq_diff", pings=sum(E2E_PINGS), launches=json.dumps(fd_launches),
         cuda_vs_cpu_dB=err, bins_over_tol=int(bad.sum()), bins_excused=n_exc,
         pings_per_s={d: round(sum(E2E_PINGS) / walls[f"raw_fd_{d}"], 1) for d in ("cuda", "cpu")},
@@ -1378,7 +1437,9 @@ def ek80_phase(files):
     power = launches["power_cuda"]
     chunks = len(files) * -(-EK80_PINGS // EK80_GRID["chunk_pings"])
     checks["power leg launches"] = (power["window_partials_uniform"] + power["window_partials"]
-                                    == chunks and power["toeplitz_matmul"] == 0)
+                                    == chunks and power["toeplitz_matmul"] == 0
+                                    and power["window_partials_uniform_f32"]
+                                    + power["window_partials_f32"] == 0)
     checks["no launches on cpu"] = not any(v for k, d in launches.items() if k.endswith("cpu")
                                            for v in d.values())
     say("ek80_survey", walls_s=json.dumps(walls), launches=json.dumps(launches),
@@ -1391,6 +1452,303 @@ def ek80_phase(files):
             {"launches": mf_launches + compute_sv_launches["toeplitz_matmul"],
              "timings": timings})
 
+
+
+# ------------------------------------------------------------------ AZFP
+def write_azfp_xml4(path):
+    """The instrument XML of a four-frequency AZFP (tests/synth_azfp.py's
+    layout, one value per frequency)."""
+    def per(tag, vals):
+        return "".join(f"<{tag}>{v}</{tag}>" for v in vals)
+
+    Path(path).write_text(f"""<?xml version="1.0"?>
+<InstrumentInfo>
+  <NumFreq>4</NumFreq>
+  <SerialNumber>55077</SerialNumber>
+  <SensorsFlag PressureSensorInstalled="no"/>
+  <ka>0.001</ka><kb>5000.0</kb><kc>5.0</kc>
+  <A>0.00123</A><B>0.000234</B><C>0.00000011</C>
+  <X_a>0.0</X_a><X_b>0.01</X_b><X_c>0.0</X_c><X_d>0.0</X_d>
+  <Y_a>0.0</Y_a><Y_b>0.01</Y_b><Y_c>0.0</Y_c><Y_d>0.0</Y_d>
+  <a0>0.0</a0><a1>0.0</a1>
+  {per("DS", (0.0242, 0.0246, 0.0251, 0.0238))}
+  {per("EL", (140.2, 142.1, 141.3, 143.0))}
+  {per("TVR", (167.3, 169.8, 170.9, 172.4))}
+  {per("VTX0", (90.1, 88.2, 87.5, 86.9))}
+  {per("BP", (0.0088, 0.0049, 0.0041, 0.0035))}
+</InstrumentInfo>""")
+
+
+def write_azfp_raw4(path, hour, seed, n_pings=None, num_bins=None):
+    """One .01A file of the four-frequency AZFP: ``n_pings`` (AZFP_PINGS) 1 Hz
+    pings from ``hour``:00:00, counts made from ``seed``; each ping is the
+    67-field header of tests/synth_azfp.py::HEADER_FORMAT (four channel
+    slots), then each channel's big-endian u16 counts (``num_bins``,
+    AZFP_BINS, of them)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from synth_azfp import HEADER_FORMAT
+
+    n_pings = AZFP_PINGS if n_pings is None else n_pings
+    num_bins = AZFP_BINS if num_bins is None else num_bins
+    rng = np.random.default_rng(seed)
+    counts = [rng.integers(0, 60000, (n_pings, n)).astype(">u2") for n in num_bins]
+    chunks = []
+    for p in range(n_pings):
+        vals = [64770, p + 1, 55077, 1, 60, 2021, 3, 15, hour, p // 60, p % 60, 0]
+        vals += [AZFP_DIG_RATE] * 4 + [AZFP_LOCKOUT] * 4 + list(num_bins)
+        vals += [AZFP_SAMPLES_PER_BIN] * 4
+        vals += [1, 0, 1, 1, 1, 1]  # pings a profile, averaged, acquired, period, first, last
+        vals += [0, 0, 0, 0, 0]  # data type x4 (counts, not averaged), data error
+        vals += [1, 0, len(num_bins)]  # phase, overrun, channels
+        vals += [1, 1, 1, 1, 0]  # gain x4, spare
+        vals += list(AZFP_PULSE_US) + [1, 2, 3, 4] + list(AZFP_FREQS_KHZ)
+        vals += [1, 100, 200, 30000, 0, 30000, 20000, 0]  # sensors, tilt, battery, p, T, ad
+        chunks.append(struct.pack(HEADER_FORMAT, *vals))
+        chunks.extend(c[p].tobytes() for c in counts)
+    Path(path).write_bytes(b"".join(chunks))
+
+
+def write_azfp_files():
+    DATA_DIR.mkdir(parents=True, exist_ok=True)
+    xml = DATA_DIR / "55077.XML"
+    write_azfp_xml4(xml)
+    files = []
+    for i in range(AZFP_FILES):
+        path = DATA_DIR / f"210315{10 + i:02d}.01A"
+        write_azfp_raw4(path, hour=10 + i, seed=i)
+        files.append(str(path))
+    return files, str(xml)
+
+
+def test_helpers(module, names, **ns):
+    """Top-level constants and undecorated functions of tests/<module>.py,
+    run without the module's imports (they import the JAX package, which the
+    card's machine does not have); ``ns`` supplies what the helpers use."""
+    path = ROOT / "tests" / f"{module}.py"
+    keep = [n for n in ast.parse(path.read_text()).body
+            if isinstance(n, ast.Assign)
+            or (isinstance(n, ast.FunctionDef) and not n.decorator_list)]
+    env = {"np": np, "struct": struct, **ns}
+    exec(compile(ast.Module(keep, type_ignores=[]), str(path), "exec"), env)
+    return [env[n] for n in names]
+
+
+def _same_run(a, b):
+    """Two survey outputs equal bit for bit, coordinates included."""
+    return np.array_equal(np.asarray(a["Sv"].values), np.asarray(b["Sv"].values),
+                          equal_nan=True) and _same_coords(
+        a, b, ("channel", "ping_time", "echo_range"))
+
+
+def _cuda_vs_cpu(runs, excused=None):
+    """(max dB over the bins not excused, NaN masks equal there, coords
+    equal) of the cuda and cpu runs."""
+    g, w = (np.asarray(runs[d]["Sv"].values) for d in ("cuda", "cpu"))
+    err, same_nan, n_exc = _cmp_excused(g, w, np.zeros(g.shape, bool) if excused is None
+                                        else excused)
+    return err, same_nan and _same_coords(runs["cuda"], runs["cpu"],
+                                          ("channel", "ping_time", "echo_range")), n_exc
+
+
+def azfp_phase(file_a):
+    """AZFP, AZFP6, ECS and AD2CP: conversion, calibration and the float32
+    dB power survey on K2's float32 instance."""
+    import echopype_torch as et
+    from echopype_torch.calibrate.ecs import ecs_to_params
+    from echopype_torch.convert.parse_ad2cp import checksum
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.parallel import pipeline as tp
+    from echopype_torch.parallel.survey import _slice_echodata_pings
+    from echopype_torch.utils.profiling import StageTimer
+
+    checks, walls = {}, {}
+    t_phase = time.perf_counter()
+
+    def timed(tag, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        return out
+
+    t0 = time.perf_counter()
+    files, xml = write_azfp_files()
+    say("azfp_write", files=len(files), pings=AZFP_FILES * AZFP_PINGS,
+        seconds=round(time.perf_counter() - t0, 2),
+        MB=round(sum(Path(f).stat().st_size for f in files) / 1e6, 1))
+
+    # open_raw and compute_Sv on one file: host float64 on cuda and cpu alike
+    ed = timed("open_raw", lambda: et.open_raw(files[0], sonar_model="AZFP", xml_path=xml))
+    sv = {d: timed(f"compute_Sv_{d}", lambda: et.calibrate.compute_Sv(
+        ed, env_params=AZFP_ENV, device=d)) for d in ("cuda", "cpu")}
+    checks["compute_Sv cuda == cpu"] = all(
+        np.array_equal(sv["cuda"][v].values, sv["cpu"][v].values, equal_nan=True)
+        for v in ("Sv", "echo_range"))
+    sv_c = np.asarray(sv["cuda"]["Sv"].values)
+    ragged = [int(np.isfinite(sv_c[c, 0]).sum()) for c in range(sv_c.shape[0])]
+    checks["ragged channels"] = ragged == list(AZFP_BINS)  # channels ascend in frequency
+    say("azfp_open", shape=list(sv_c.shape), finite_bins=ragged,
+        open_raw_s=round(walls["open_raw"], 2),
+        compute_Sv_s={d: round(walls[f"compute_Sv_{d}"], 2) for d in ("cuda", "cpu")},
+        device=repr(sv["cuda"].attrs["device"]), bit_identical=checks["compute_Sv cuda == cpu"])
+
+    # the survey over the three files: twice on the card, once on the cpu
+    kw = dict(sonar_model="AZFP", xml_path=xml, env_params=AZFP_ENV, **AZFP_GRID)
+    n_pings = AZFP_FILES * AZFP_PINGS
+    chunks = AZFP_FILES * -(-AZFP_PINGS // AZFP_GRID["chunk_pings"])
+    runs, launches, stages = {}, {}, {}
+    for tag, device in (("cuda", "cuda"), ("cuda_rerun", "cuda"), ("cpu", "cpu")):
+        wp.reset_launches()
+        timer = StageTimer()
+        runs[tag] = timed(f"survey_{tag}", lambda: et.run_survey_mvbs_from_raw(
+            files, timer=timer, device=device, **kw))
+        launches[tag] = dict(wp.LAUNCHES)
+        stages[tag] = timer.report(log=False)
+    survey_launches = launches["cuda"]
+    checks["survey launches"] = survey_launches == {
+        "window_partials_uniform": 0, "window_partials": 0, "window_partials_uniform_f32": 0,
+        "window_partials_f32": chunks} and not any(launches["cpu"].values())
+    checks["survey card rerun bit-identical"] = _same_run(runs["cuda"], runs["cuda_rerun"])
+    err, same, _ = _cuda_vs_cpu(runs)
+    checks["survey cuda vs cpu"] = same and err <= MVBS_ATOL_DB
+    g = np.asarray(runs["cuda"]["Sv"].values)
+
+    # the composed chain on the card: compute_Sv -> compute_MVBS, file by file
+    sv_files, parts = [], []
+    for f in files:
+        e = et.open_raw(f, sonar_model="AZFP", xml_path=xml)
+        sv_files.append(et.calibrate.compute_Sv(e, env_params=AZFP_ENV))
+        parts.append(et.compute_MVBS(sv_files[-1], range_bin=AZFP_GRID["range_bin"],
+                                     ping_time_bin=AZFP_GRID["ping_time_bin"]))
+    want = np.concatenate([np.asarray(m["Sv"].values) for m in parts], axis=1)
+    n_r = min(g.shape[2], want.shape[2])
+    # each file's bins in the survey grid; the survey's other bins hold no ping
+    pt_s = np.asarray(runs["cuda"].coords["ping_time"].values)
+    pt_w = np.concatenate([np.asarray(m.coords["ping_time"].values) for m in parts])
+    pos = np.clip(np.searchsorted(pt_s, pt_w), 0, len(pt_s) - 1)
+    pt_ok = np.array_equal(pt_s[pos], pt_w) and bool(np.isnan(np.delete(g, pos, axis=1)).all())
+    gg, ww = g[:, pos, :n_r], want[:, :, :n_r]
+    with np.errstate(invalid="ignore"):
+        comp_ok = np.array_equal(np.isnan(gg), np.isnan(ww)) and bool(np.all(
+            np.abs(gg - ww)[np.isfinite(ww)] <= COMPOSED_ATOL_DB
+            + COMPOSED_RTOL * np.abs(ww[np.isfinite(ww)])))
+    checks["survey vs composed chain"] = pt_ok and comp_ok and g.shape[2] >= want.shape[2] - 1
+    n_x = ((AZFP_FILES - 1) * 3600 + AZFP_PINGS - 1) // 20 + 1  # hourly files of 1 Hz pings
+    checks["survey grid"] = g.shape[:2] == (len(AZFP_FREQS_KHZ), n_x) and (
+        np.isfinite(gg).mean() > 0.5)
+    say("azfp_survey", pings=n_pings, shape=list(g.shape), launches=json.dumps(survey_launches),
+        cuda_vs_cpu_dB=err, rerun_bit_identical=checks["survey card rerun bit-identical"],
+        composed_max_dB=_max_db(gg, ww)[0], composed_n_r=[g.shape[2], want.shape[2]],
+        pings_per_s={t: round(n_pings / walls[f"survey_{t}"], 1) for t in runs},
+        stages=json.dumps(stages["cuda"]))
+
+    # freq_diff over the three files; the mask may flip where the card's Sv
+    # sits within MASK_MARGIN_DB of the criterion
+    freqs = np.asarray(sv["cuda"]["frequency_nominal"].values, dtype="f8")
+    ia, ib = int(np.nonzero(freqs == 200e3)[0][0]), int(np.nonzero(freqs == 38e3)[0][0])
+    fd, fd_launches = {}, {}
+    for device in ("cuda", "cpu"):
+        wp.reset_launches()
+        tp.LAUNCHES["freqdiff_step"] = 0
+        fd[device] = timed(f"fd_{device}", lambda: et.run_survey_mvbs_from_raw(
+            files, freq_diff=AZFP_FD_EQ, timer=StageTimer(), device=device, **kw))
+        fd_launches[device] = {**wp.LAUNCHES, **tp.LAUNCHES}
+    g, w = (np.asarray(fd[d]["Sv"].values) for d in ("cuda", "cpu"))
+    bad = _bad_bins(g, w, MVBS_ATOL_DB)
+    excused = _margin_excused(bad, sv_files, _fd_margin(ia, ib, 3.0), MASK_MARGIN_DB, fd["cuda"])
+    err, same, n_exc = _cuda_vs_cpu(fd, excused)
+    checks["freq_diff cuda vs cpu"] = same and err <= MVBS_ATOL_DB and np.isfinite(g).any()
+    checks["freq_diff launches"] = fd_launches["cuda"]["freqdiff_step"] == chunks and not any(
+        v for k, v in fd_launches["cuda"].items() if k != "freqdiff_step")
+
+    # noise_masks on one file (two-pass, compute_Sv per file)
+    nm = {d: timed(f"noise_{d}", lambda: et.run_survey_mvbs_from_raw(
+        files[:1], noise_masks=RAW_MASKS, timer=StageTimer(), device=d, **kw))
+        for d in ("cuda", "cpu")}
+    flag = _noise_flags(sv["cuda"], RAW_MASKS, "cuda") != _noise_flags(sv["cpu"], RAW_MASKS, "cpu")
+    excused = _flag_bins(flag, np.asarray(sv["cuda"].coords["ping_time"].values).astype("i8"),
+                         np.broadcast_to(np.asarray(sv["cuda"]["echo_range"].values, "f8"),
+                                         flag.shape),
+                         np.asarray(nm["cuda"].coords["ping_time"].values).astype("i8"),
+                         np.asarray(nm["cuda"].coords["echo_range"].values, dtype="f8"))
+    nm_err, nm_same, nm_exc = _cuda_vs_cpu(nm, excused)
+    checks["noise_masks cuda vs cpu"] = nm_same and nm_err <= MVBS_ATOL_DB
+    say("azfp_masks", freq_diff=AZFP_FD_EQ, fd_cuda_vs_cpu_dB=err, fd_bins_excused=n_exc,
+        fd_launches=json.dumps(fd_launches["cuda"]),
+        fd_finite_share=round(float(np.isfinite(g).mean()), 4),
+        noise_cuda_vs_cpu_dB=nm_err, noise_samples_differ=int(flag.sum()),
+        noise_bins_excused=nm_exc,
+        noise_finite_share=round(float(np.isfinite(nm["cuda"]["Sv"].values).mean()), 4),
+        pings_per_s={t: round(n_pings / walls[f"fd_{t}"], 1) for t in fd})
+    del ed, sv, sv_files, parts, runs, fd, nm
+
+    # AZFP6: one tests/test_azfp6.py file through the survey
+    (write_azfp6_raw,) = test_helpers("test_azfp6", ["write_azfp6_raw"])
+    raw6 = DATA_DIR / "22070112.azfp"
+    write_azfp6_raw(raw6, n_pings=AZFP_PINGS, num_bins=AZFP6_BINS)
+    kw6 = dict(sonar_model="AZFP6", env_params=AZFP_ENV, **AZFP_GRID)
+    runs6, l6 = {}, {}
+    for device in ("cuda", "cpu"):
+        wp.reset_launches()
+        runs6[device] = timed(f"azfp6_{device}", lambda: et.run_survey_mvbs_from_raw(
+            [raw6], timer=StageTimer(), device=device, **kw6))
+        l6[device] = wp.LAUNCHES["window_partials_f32"]
+    err6, same6, _ = _cuda_vs_cpu(runs6)
+    checks["azfp6 cuda vs cpu"] = same6 and err6 <= MVBS_ATOL_DB and np.isfinite(
+        runs6["cuda"]["Sv"].values).any()
+    checks["azfp6 launches"] = l6 == {"cuda": -(-AZFP_PINGS // AZFP_GRID["chunk_pings"]),
+                                      "cpu": 0}
+    say("azfp6_survey", pings=AZFP_PINGS, shape=list(np.shape(runs6["cuda"]["Sv"].values)),
+        cuda_vs_cpu_dB=err6, launches=json.dumps(l6),
+        pings_per_s={d: round(AZFP_PINGS / walls[f"azfp6_{d}"], 1) for d in runs6})
+
+    # ECS: tests/test_ecs.py's text (18 and 38 kHz) with SourceCals for file
+    # A's other three channels, on A's first ECS_PINGS pings
+    (ecs_text,) = test_helpers("test_ecs", ["ECS_CONTENT"])
+    extra = "".join(
+        f"SourceCal T{i}\n    AbsorptionCoefficient = {a} # (decibels per meter)\n"
+        f"    Frequency = {f:.2f} # (kilohertz)\n    TransducerGain = {gain} # (decibels)\n"
+        "    SaCorrectionFactor = -0.55 # (decibels)\n"
+        "    TwoWayBeamAngle = -20.70 # (decibels re 1 steradian)\n\n"
+        for i, (f, a, gain) in enumerate(((70, 0.0201, 27.1), (120, 0.0365, 26.9),
+                                          (200, 0.0528, 25.8)), start=3))
+    marker = "#" + "=" * 88 + "#\n#" + " " * 36 + "LOCALCAL"
+    ecs = DATA_DIR / "smoke.ecs"
+    ecs.write_text(ecs_text.replace(marker, extra + marker, 1))
+    head = _slice_echodata_pings(et.open_raw(file_a, sonar_model="EK60"), "Sonar/Beam_group1",
+                                 slice(0, ECS_PINGS))
+    env_p, cal_p = ecs_to_params(str(ecs), "EK60", head["Sonar/Beam_group1"]["frequency_nominal"])
+    by_ecs = {d: timed(f"ecs_{d}", lambda: et.calibrate.compute_Sv(head, ecs_file=str(ecs),
+                                                                    device=d))
+              for d in ("cuda", "cpu")}
+    explicit = et.calibrate.compute_Sv(head, env_params=env_p, cal_params=cal_p)
+    ecs_db, ecs_nan = _max_db(by_ecs["cuda"]["Sv"].values, by_ecs["cpu"]["Sv"].values)
+    checks["ecs == explicit parameters (card)"] = np.array_equal(
+        by_ecs["cuda"]["Sv"].values, explicit["Sv"].values, equal_nan=True)
+    checks["ecs cuda vs cpu"] = ecs_nan and ecs_db <= MVBS_ATOL_DB
+    checks["ecs parameters used"] = bool(np.allclose(
+        np.asarray(by_ecs["cuda"]["sound_speed"].values, "f8"), 1473.0))
+    say("azfp_ecs", pings=ECS_PINGS, channels=len(env_p["sound_absorption"].values),
+        cuda_vs_cpu_dB=ecs_db, equals_explicit=checks["ecs == explicit parameters (card)"],
+        seconds=round(walls["ecs_cuda"], 2))
+    del head, by_ecs, explicit
+
+    # AD2CP: open_raw of one tests/test_ad2cp.py file on this machine
+    (write_ad2cp,) = test_helpers("test_ad2cp", ["write_ad2cp"], checksum=checksum)
+    ad = DATA_DIR / "smoke.ad2cp"
+    write_ad2cp(ad, with_bottom_track=True, with_echosounder_raw=True)
+    ed_ad = timed("ad2cp", lambda: et.open_raw(ad, sonar_model="AD2CP"))
+    checks["ad2cp groups"] = "Sonar/Beam_group1" in ed_ad.group_paths and "Vendor_specific" in (
+        ed_ad.group_paths)
+    say("azfp_ad2cp", groups=json.dumps(sorted(ed_ad.group_paths)),
+        seconds=round(walls["ad2cp"], 3))
+
+    failed = [k for k, v in checks.items() if not v]
+    say("azfp_check", checks=len(checks), failed=json.dumps(failed),
+        phase_s=round(time.perf_counter() - t_phase, 1))
+    if failed:
+        raise AssertionError(f"azfp phase: {failed}")
+    return survey_launches
 
 def write_files():
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1439,7 +1797,7 @@ def main():
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:  # one nvcc per source, together
         built = list(pool.map(build, KERNEL_SOURCES))
     ptxas = [ln.strip() for _, log in built for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     say("build", seconds=round(time.perf_counter() - t0, 2),
         libraries=",".join(lib.name for lib, _ in built), ptxas=json.dumps(ptxas))
 
@@ -1447,6 +1805,10 @@ def main():
     kernel_phase("K1", uniform=True, seed=5, ping_bin_s=COARSE_PING_BIN_S)
     k2 = kernel_phase("K2", uniform=False, seed=2)
     kernel_phase("K2", uniform=False, seed=6, ping_bin_s=COARSE_PING_BIN_S)
+    k1_f32 = kernel_phase("K1_f32", uniform=True, seed=7)
+    kernel_phase("K1_f32", uniform=True, seed=8, ping_bin_s=COARSE_PING_BIN_S)
+    k2_f32 = kernel_phase("K2_f32", uniform=False, seed=9)
+    kernel_phase("K2_f32", uniform=False, seed=10, ping_bin_s=COARSE_PING_BIN_S)
     k3 = fused_phase("K3", with_sv=True, seed=3)
     k4 = fused_phase("K4", with_sv=False, seed=4)
     torch.cuda.empty_cache()
@@ -1481,12 +1843,15 @@ def main():
         say("write_ek80", files=len(files80), seconds=round(time.perf_counter() - t0, 2),
             GB=round(sum(Path(f).stat().st_size for f in files80) / 1e9, 3))
         ek80_launches, matched_filter = ek80_phase(files80)
+        torch.cuda.empty_cache()
+        azfp_launches = azfp_phase(files[0])
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
     chunks = [-(-n // P) for n in E2E_PINGS]
     want_launches = {"window_partials_uniform": chunks[0] + chunks[1],
-                     "window_partials": chunks[2]}
+                     "window_partials": chunks[2], "window_partials_uniform_f32": 0,
+                     "window_partials_f32": 0}
     if launches != want_launches:
         raise AssertionError(f"launch counts {launches}, expected {want_launches}")
     g, w = np.asarray(mvbs["Sv"].values), np.asarray(ref["Sv"].values)
@@ -1527,6 +1892,15 @@ def main():
         {"name": "mvbs_partials", "route": "cuda", "source": src_fused,
          "replaces": "echopype_tpu/ops/pallas_pipeline.py:170",
          "launches": sv_launches["mvbs_partials"], **k4},
+        # the float32 dB instances of K1 / K2: K2's runs every chunk of the
+        # AZFP survey; K1's is on no survey path (AZFP echo_range has an
+        # intercept, so it is never uniform) and runs in the kernel phase only
+        {"name": "window_partials_uniform_f32", "route": "cuda", "source": src,
+         "replaces": "echopype_tpu/ops/pallas_window.py:174",
+         "launches": azfp_launches["window_partials_uniform_f32"], **k1_f32},
+        {"name": "window_partials_f32", "route": "cuda", "source": src,
+         "replaces": "echopype_tpu/ops/pallas_window.py:219",
+         "launches": azfp_launches["window_partials_f32"], **k2_f32},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

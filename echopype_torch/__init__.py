@@ -1,9 +1,12 @@
 """echopype_torch: the PyTorch / CUDA port of echopype_tpu.
 
-EK60/ES70 and EK80/ES80/EA640 files convert here.  The survey path: raw
+EK60/ES70, EK80/ES80/EA640, AZFP/AZFP6 and AD2CP files convert here;
+``calibrate.compute_Sv`` / ``compute_TS`` take EK60, EK80 and AZFP data,
+and an Echoview ECS file (``ecs_file=``, EK60/EK80).  The survey path: raw
 files -> ``open_raw`` -> power-mode calibration -> MVBS, with the fused
 window step as hand-written CUDA kernels for Hopper
-(``ops/window_partials.py``); EK80 complex / broadband channels calibrate
+(``ops/window_partials.py``: int16 EK power, float32 dB AZFP power with
+its echo_range intercept); EK80 complex / broadband channels calibrate
 with the matched filter on the device (``ops/matched_filter.py``) and
 stream chunked or fused (``ops/bb_pipeline.py``).  The Sv path:
 ``calibrate.compute_Sv`` -> ``commongrid.compute_MVBS`` / ``compute_NASC``,

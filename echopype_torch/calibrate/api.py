@@ -1,10 +1,9 @@
-"""compute_Sv / compute_TS for EK60/ES70 and EK80/ES80/EA640 data.
+"""compute_Sv / compute_TS for EK60/ES70, EK80/ES80/EA640 and AZFP/AZFP6 data.
 
 Counterpart of ``echopype_tpu/calibrate/api.py`` (reference
 echopype/calibrate/api.py:23-449): calibrator dispatch by sonar model,
-EK80 waveform/encode validation, multi-``filter_time`` epochs, output
-attrs, provenance and water_level.  AZFP/AZFP6 and ``ecs_file`` are not
-ported yet and raise ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+EK80 waveform/encode validation, multi-``filter_time`` epochs, ECS files
+(``ecs.py``, EK60/EK80), output attrs, provenance and water_level.
 """
 
 from __future__ import annotations
@@ -14,22 +13,28 @@ import numpy as np
 from ..utils.prov import echopype_prov_attrs, source_files_vars
 from ..xrlite import Dataset
 
-__all__ = ["compute_Sv", "compute_TS", "epoch_slice_dicts"]
+__all__ = ["compute_Sv", "compute_TS", "epoch_slice_dicts", "CALIBRATOR"]
 
 _EK80_MODELS = ("EK80", "ES80", "EA640")
 
 
 def _calibrator_map():
+    from .azfp import CalibrateAZFP
     from .ek import CalibrateEK60
     from .ek80 import CalibrateEK80
 
     return {
+        "AZFP": CalibrateAZFP,
+        "AZFP6": CalibrateAZFP,
         "EK60": CalibrateEK60,
         "ES70": CalibrateEK60,
         "EK80": CalibrateEK80,
         "ES80": CalibrateEK80,
         "EA640": CalibrateEK80,
     }
+
+
+CALIBRATOR = _calibrator_map  # resolved lazily to avoid import cycles
 
 
 def epoch_slice_dicts(beam, vend):
@@ -78,11 +83,6 @@ def _compute_cal(
     **kwargs,
 ) -> Dataset:
     model = echodata.sonar_model
-    if model in ("AZFP", "AZFP6"):
-        raise NotImplementedError(
-            f"compute_{cal_type} for {model} is not ported to echopype_torch yet "
-            "(ROADMAP Queue 1 item 11); use echopype_tpu"
-        )
     cal_map = _calibrator_map()
     if model not in cal_map:
         raise ValueError(f"Unsupported sonar model for calibration: {model}")
@@ -225,8 +225,8 @@ def compute_Sv(
     echodata, env_params=None, cal_params=None, ecs_file=None,
     waveform_mode=None, encode_mode=None, device="cuda", **kwargs,
 ) -> Dataset:
-    """Volume backscattering strength Sv from EK60/ES70 or EK80/ES80/EA640
-    raw data.
+    """Volume backscattering strength Sv from EK60/ES70, EK80/ES80/EA640 or
+    AZFP/AZFP6 raw data.
 
     Parameters mirror ``echopype_tpu.calibrate.compute_Sv``: ``env_params``,
     ``cal_params``, for EK80 ``waveform_mode`` {"CW", "BB", "FM"} and
@@ -235,7 +235,9 @@ def compute_Sv(
     equation run in float32 on ``device``; "float64" runs them in host
     numpy), ``drop_last_hanning_zero`` and ``assume_single_filter_time``.
     ``device`` is "cuda" by default, "cpu" for the plain PyTorch path.
-    ``ecs_file`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 11).
+    ``ecs_file`` (EK60/EK80) replaces ``env_params`` and ``cal_params``.
+    AZFP/AZFP6 calibrate in host float64 numpy, as in the JAX package;
+    ``device`` is checked and named in ``attrs["device"]``.
     """
     return _compute_cal(
         "Sv", echodata, env_params=env_params, cal_params=cal_params,

@@ -33,20 +33,27 @@ class CalibrateBase:
     """
 
     def __init__(self, echodata, env_params=None, cal_params=None, ecs_file=None, **kw):
-        if ecs_file is not None:
-            raise NotImplementedError(
-                "ecs_file is not ported to echopype_torch yet (ROADMAP Queue 1 item 11); "
-                "use echopype_tpu"
-            )
         self.echodata = echodata
-        # None | dict only (reference calibrate_base.py:35-47)
-        if env_params is not None and not isinstance(env_params, dict):
-            raise ValueError("'env_params' has to be None or a dict")
-        if cal_params is not None and not isinstance(cal_params, dict):
-            raise ValueError("'cal_params' has to be None or a dict")
-        self.env_params = env_params or {}
-        self.cal_params = cal_params or {}
+        # None | dict only (reference calibrate_base.py:35-47).  With an ECS
+        # file the type check is skipped: the ECS file takes precedence and
+        # env_params/cal_params are discarded (reference :20-32).
+        if ecs_file is None:
+            if env_params is not None and not isinstance(env_params, dict):
+                raise ValueError("'env_params' has to be None or a dict")
+            if cal_params is not None and not isinstance(cal_params, dict):
+                raise ValueError("'cal_params' has to be None or a dict")
+            self.env_params = env_params or {}
+            self.cal_params = cal_params or {}
+        else:
+            self.env_params = {}
+            self.cal_params = {}
+        self.ecs_file = ecs_file
+        self.ecs_dict = {}
         self.precision = kw.get("precision", "float32")
+        if ecs_file is not None and (env_params or cal_params):
+            logger.warning(
+                "The ECS file takes precedence when it conflicts with env_params or cal_params"
+            )
         self.device = kw.get("device", "cuda")
         self._range_meter = None
 
@@ -219,6 +226,14 @@ class CalibrateEK60(CalibrateEK):
         self.ed_beam_group = "Sonar/Beam_group1"
         self.beam = echodata[self.ed_beam_group]
         self.vend = echodata["Vendor_specific"]
+
+        if self.ecs_file is not None:
+            from .ecs import ecs_to_params
+
+            self.env_params, self.cal_params = ecs_to_params(
+                self.ecs_file, "EK60", self.beam["frequency_nominal"]
+            )
+
         self.env_params = get_env_params_EK(
             sonar_type=self.sonar_type,
             beam=self.beam,

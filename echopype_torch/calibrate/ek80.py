@@ -135,6 +135,14 @@ class CalibrateEK80(CalibrateEK):
         else:
             self.freq_center = self.beam["frequency_nominal"]
 
+        if self.ecs_file is not None:
+            from .ecs import ecs_to_params
+
+            self.env_params, self.cal_params = ecs_to_params(
+                self.ecs_file, "EK80", self.beam["frequency_nominal"],
+                freq_center=self.freq_center,
+            )
+
         self.env_params = get_env_params_EK(
             sonar_type="EK80",
             beam=self.beam,

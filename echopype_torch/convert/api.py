@@ -80,11 +80,6 @@ def open_raw(
         raise ValueError(
             f"Unsupported sonar_model {sonar_model!r}; must be one of {sorted(SONAR_MODELS)}"
         )
-    if SONAR_MODELS[sonar_model]["parser"] is None:
-        raise NotImplementedError(
-            f"open_raw for {sonar_model} is not ported to echopype_torch yet "
-            "(ROADMAP Queue 1 item 11); EK60/ES70 and EK80/ES80/EA640 convert here"
-        )
     raw_file, bot_file, idx_file = _check_file(
         raw_file, sonar_model, xml_path, include_bot, include_idx,
         storage_options=storage_options,

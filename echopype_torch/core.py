@@ -2,10 +2,6 @@
 
 Capability parity: echopype/core.py:44-111 — a static dispatch table mapping
 sonar model name to parser/set-groups classes and file-extension validation.
-EK60/ES70 and EK80/ES80/EA640 conversion is ported to echopype_torch; AZFP,
-AZFP6 and AD2CP keep their extension rules and carry no parser
-(``convert.api.open_raw`` raises ``NotImplementedError`` for them; ROADMAP
-Queue 1 item 11).
 """
 
 from pathlib import Path
@@ -67,24 +63,24 @@ SONAR_MODELS = {
     "AZFP": {
         "ext": ".01A",
         "xml": True,
-        "parser": None,
-        "set_groups": None,
+        "parser": _lazy(".convert.parse_azfp", "ParseAZFP"),
+        "set_groups": _lazy(".convert.set_groups_azfp", "SetGroupsAZFP"),
         "accepts_bot": False,
         "accepts_idx": False,
     },
     "AZFP6": {
         "ext": ".azfp",
         "xml": False,
-        "parser": None,
-        "set_groups": None,
+        "parser": _lazy(".convert.parse_azfp6", "ParseAZFP6"),
+        "set_groups": _lazy(".convert.set_groups_azfp6", "SetGroupsAZFP6"),
         "accepts_bot": False,
         "accepts_idx": False,
     },
     "AD2CP": {
         "ext": ".ad2cp",
         "xml": False,
-        "parser": None,
-        "set_groups": None,
+        "parser": _lazy(".convert.parse_ad2cp", "ParseAd2cp"),
+        "set_groups": _lazy(".convert.set_groups_ad2cp", "SetGroupsAd2cp"),
         "accepts_bot": False,
         "accepts_idx": False,
     },

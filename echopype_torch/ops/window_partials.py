@@ -10,13 +10,20 @@ Counterpart of ``echopype_tpu/ops/pallas_window.py``:
 Each computes, for every (channel, ping-window bin, range bin) cell, the sum
 of ``10^(Sv/10)`` over its samples, with
 ``Sv = power*INDEX2POWER + 20 log10(r_tvg) + 2 alpha r_tvg + offset``, and
-the number of samples (K1 on request, K2 always).  The kernels live in
+the number of samples (K1 on request, K2 always).  ``power`` is int16
+sample indices (EK60/EK80) or, as the Pallas kernels also take it, float32
+dB (AZFP: no INDEX2POWER); the dtype picks the kernel's instance, each with
+its own :data:`LAUNCHES` key.  float32 power follows the XLA step the JAX
+survey runs for it (``parallel/pipeline.py::_closed_s1_n1``): a sample
+whose Sv is NaN adds 0 to its bin, every other sample from ``k0`` on is
+added whatever ``valid_len`` says, and counts stay closed form from
+``valid_len`` (the Pallas bodies would spread the NaN instead).  The kernels live in
 ``csrc/window_partials.cu`` (the design and what bounds it are noted
 there): one block per (channel, ping slab), a slab being at most
 :data:`SLAB_PINGS` pings of one window bin, cut on the host by
 :func:`slab_plan`.  The operands are the ones
-``parallel/pipeline.py::kernel_inputs_from_numpy`` builds: int16 power,
-int32 valid lengths / window ping bounds ``xb`` / range-bin sample bounds,
+``parallel/pipeline.py::kernel_inputs_from_numpy`` builds: int16 or float32
+power, int32 valid lengths / window ping bounds ``xb`` / range-bin sample bounds,
 and the slab ``plan``.
 
 Dispatch is by the device of ``power``: a CUDA tensor launches the kernel
@@ -51,7 +58,11 @@ INDEX2POWER = 0.011758984205624481  # 10*log10(2)/256
 LN10_OVER_10 = 0.23025850929940458
 
 #: kernel name -> launches since the last :func:`reset_launches`
-LAUNCHES = {"window_partials_uniform": 0, "window_partials": 0}
+LAUNCHES = {"window_partials_uniform": 0, "window_partials": 0,
+            "window_partials_uniform_f32": 0, "window_partials_f32": 0}
+
+#: power dtype -> the suffix of its instance's C entry point and LAUNCHES key
+_INSTANCES = {torch.int16: "", torch.float32: "_f32"}
 
 #: most pings one block of K1 / K2 walks: windows longer than this are cut
 #: into several slabs, so a survey of few, long windows still fills the card
@@ -93,19 +104,36 @@ def _range_bin_matrix(bounds, R):
     return ((k >= bounds[:, None, :-1]) & (k < bounds[:, None, 1:])).to(torch.float32)
 
 
+def _power_db(power):
+    """Power in dB: int16 indices scaled by INDEX2POWER, float32 as it is."""
+    if power.dtype == torch.int16:
+        return power.to(torch.float32) * INDEX2POWER
+    if power.dtype == torch.float32:
+        return power
+    raise TypeError(f"power must be int16 indices or float32 dB, got {power.dtype}")
+
+
+def _lin_kept(e, power, lane, valid_len):
+    """``e`` where a sample is added: below ``valid_len`` for int16 power,
+    where ``e`` is not NaN for float32 dB."""
+    if power.dtype == torch.int16:
+        return torch.where(lane < valid_len[:, :, None], e, 0.0)
+    return torch.where(torch.isnan(e), 0.0, e)
+
+
 def window_partials_uniform_plain(power, sprd_row, rt2_row, absorption, offset,
                                   valid_len, xb, bounds, with_counts=True):
     """Plain PyTorch K1 (see :func:`window_partials_uniform`)."""
     C, P, R = power.shape
     n_r = bounds.shape[1] - 1
     sv = (
-        power.to(torch.float32) * INDEX2POWER
+        _power_db(power)
         + sprd_row[:, None, :]
         + absorption[:, :, None] * rt2_row[:, None, :]
         + offset[:, :, None]
     )
     lane = torch.arange(R, device=power.device)
-    lin = torch.where(lane < valid_len[:, :, None], torch.exp(sv * LN10_OVER_10), 0.0)
+    lin = _lin_kept(torch.exp(sv * LN10_OVER_10), power, lane, valid_len)
     s1 = torch.bmm(lin, _range_bin_matrix(bounds, R))  # [C, P, n_r]
     if not with_counts:
         return banded_x_reduce(s1, xb)
@@ -123,13 +151,13 @@ def window_partials_plain(power, dr, tvg_shift, absorption, offset, k0, valid_le
     lane = torch.arange(R, device=power.device)
     r_tvg = lane.to(torch.float32) * dr[:, :, None] - tvg_shift[:, :, None]
     sv = (
-        power.to(torch.float32) * INDEX2POWER
+        _power_db(power)
         + 20.0 * torch.log10(torch.clamp_min(r_tvg, 1e-20))
         + 2.0 * absorption[:, :, None] * r_tvg
         + offset[:, :, None]
     )
-    valid = (lane >= k0[:, :, None]) & (lane < valid_len[:, :, None])
-    lin = torch.where(valid, torch.exp(sv * LN10_OVER_10), 0.0)
+    e = torch.where(lane >= k0[:, :, None], torch.exp(sv * LN10_OVER_10), 0.0)
+    lin = _lin_kept(e, power, lane, valid_len)
     s1 = torch.bmm(lin, _range_bin_matrix(bounds, R))
     clipped = torch.minimum(
         torch.maximum(bounds[:, None, :], k0[:, :, None]), valid_len[:, :, None]
@@ -154,7 +182,12 @@ def _launch(entry, name, power, operands, W, n_r, with_counts):
     """Check the operands, allocate the outputs (and the slab partials when
     some window has several slabs) and launch ``entry`` on the current
     stream.  ``operands``: C argument order, name -> (tensor, dtype, shape),
-    starting with power; the slab ``plan``'s shape is checked here."""
+    starting with power; the slab ``plan``'s shape is checked here.  The
+    instance follows power's dtype: int16 launches ``entry``, float32
+    ``entry + "_f32"`` (counted under ``name + "_f32"``)."""
+    if power.dtype not in _INSTANCES:
+        raise TypeError(f"power must be int16 indices or float32 dB, got {power.dtype}")
+    entry, name = entry + _INSTANCES[power.dtype], name + _INSTANCES[power.dtype]
     if W < 0 or n_r < 0:
         raise ValueError("xb and bounds need at least one entry each")
     dev = power.device
@@ -191,7 +224,7 @@ def window_partials_uniform(power, sprd_row, rt2_row, absorption, offset, valid_
                             xb, bounds, with_counts=True, *, plan):
     """K1: fused window partials for per-channel uniform ``dr``.
 
-    power [C, P, R] int16 indices; sprd_row [C, R] f32
+    power [C, P, R] int16 indices or float32 dB; sprd_row [C, R] f32
     ``20 log10(k dr - shift)`` with -inf below the first valid sample k0;
     rt2_row [C, R] f32 ``2 (k dr - shift)``; absorption, offset [C, P] f32;
     valid_len [C, P] int32; xb [W + 1] int32 window ping bounds; bounds
@@ -210,7 +243,7 @@ def window_partials_uniform(power, sprd_row, rt2_row, absorption, offset, valid_
     W, n_r = xb.shape[0] - 1, bounds.shape[1] - 1
     f32, i32 = torch.float32, torch.int32
     return _launch("ep_window_partials_uniform", "window_partials_uniform", power, {
-        "power": (power, torch.int16, (C, P, R)),
+        "power": (power, power.dtype, (C, P, R)),
         "sprd_row": (sprd_row, f32, (C, R)),
         "rt2_row": (rt2_row, f32, (C, R)),
         "absorption": (absorption, f32, (C, P)),
@@ -226,9 +259,9 @@ def window_partials(power, dr, tvg_shift, absorption, offset, k0, valid_len, xb,
                     *, plan):
     """K2: fused window partials with per-ping ``dr``, TVG shift and ``k0``.
 
-    power [C, P, R] int16 indices; dr, tvg_shift, absorption, offset [C, P]
-    f32; k0 [C, P] int32 first sample with ``k dr > shift``; valid_len
-    [C, P] int32; xb [W + 1] int32; bounds [C, n_r + 1] int32 range-bin
+    power [C, P, R] int16 indices or float32 dB; dr, tvg_shift, absorption,
+    offset [C, P] f32; k0 [C, P] int32 first sample with ``k dr > shift``;
+    valid_len [C, P] int32; xb [W + 1] int32; bounds [C, n_r + 1] int32 range-bin
     sample bounds clipped to [0, R]; plan as for K1.  Returns (sums, counts)
     [C, W, n_r] f32.
     """
@@ -241,7 +274,7 @@ def window_partials(power, dr, tvg_shift, absorption, offset, k0, valid_len, xb,
     W, n_r = xb.shape[0] - 1, bounds.shape[1] - 1
     f32, i32 = torch.float32, torch.int32
     return _launch("ep_window_partials", "window_partials", power, {
-        "power": (power, torch.int16, (C, P, R)),
+        "power": (power, power.dtype, (C, P, R)),
         "dr": (dr, f32, (C, P)),
         "tvg_shift": (tvg_shift, f32, (C, P)),
         "absorption": (absorption, f32, (C, P)),

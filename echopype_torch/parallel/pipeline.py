@@ -5,8 +5,9 @@ Counterpart of the single-device parts of
 
 * the raw->MVBS survey's window step: ``sv_mvbs_window_partials_uniform``
   (per-channel uniform ``dr``, the instrument norm, K1) and
-  ``sv_mvbs_window_partials`` (``dr`` varying by ping; the EK case,
-  ``r0`` = 0, K2), plus the host helpers that fix their bin bounds;
+  ``sv_mvbs_window_partials`` (``dr`` varying by ping, or an echo_range
+  intercept ``r0``: AZFP's float32 dB power; K2), plus the host helpers
+  that fix their bin bounds;
 * the same step with a frequency-differencing mask fused in,
   ``sv_mvbs_window_partials_freqdiff`` (plain torch: its counts depend on
   the data, so they are summed like the values);
@@ -98,10 +99,15 @@ def closed_bounds_k0_np(dr0, sh0, r_edges, R):
     """Range-bin sample bounds [C, n_r+1] (clipped to [0, R]) and k0 [C].
 
     Float32 host values, bit-identical to the JAX package's device
-    refinement and to its ``closed_bounds_k0_np``.
+    refinement and to its ``closed_bounds_k0_np``.  ``r_edges`` is one
+    [n_r+1] row of edges for every channel, or [C, n_r+1] per channel (the
+    edges less each channel's echo_range intercept, ``edge_off`` of the JAX
+    package's ``_closed_s1_n1``).
     """
     dr0 = np.asarray(dr0, dtype="f4")
-    edges = np.asarray(r_edges, dtype="f4")[None, :]
+    edges = np.asarray(r_edges, dtype="f4")
+    if edges.ndim == 1:
+        edges = edges[None, :]
     q = np.ceil(edges / dr0[:, None]).astype("f4")
     bounds = np.clip(_refine_bounds(q, dr0, edges), np.float32(0.0), np.float32(R))
     return bounds, closed_k0_np(dr0, sh0)
@@ -155,23 +161,44 @@ def closed_window_counts_np(bounds, k0, valid_len, x_rel, n_x_window):
     return counts
 
 
+def _edges_and_shift(r_edges, tvg_shift, r0):
+    """The range-bin edges and TVG shift the kernels see, float32.
+
+    Without ``r0`` (the EK case) they are ``r_edges`` and ``tvg_shift``.
+    With an echo_range intercept ``r0`` [C, P] (AZFP: r = r0 + k dr), as in
+    the JAX package's ``_closed_s1_n1``: per-channel edges
+    ``edge_off = r_edges - r0[:, 0]`` (ping 0's intercept, the JAX quirk)
+    and the per-ping shift ``tvg_shift - r0``, so that ``k dr - shift`` is
+    the JAX ``k dr + (r0 - tvg_shift)`` exactly (IEEE negation is exact).
+    """
+    edges = np.asarray(r_edges, dtype="f4")
+    tvg_shift = np.asarray(tvg_shift, dtype="f4")
+    if r0 is None:
+        return edges, tvg_shift
+    r0 = np.asarray(r0, dtype="f4")
+    return edges[None, :] - r0[:, :1], tvg_shift - r0
+
+
 def kernel_inputs_from_numpy(power, dr, tvg_shift, absorption, offset, valid_len,
-                             x_rel, r_edges, n_x_window: int, *, uniform: bool, device):
+                             x_rel, r_edges, n_x_window: int, *, uniform: bool, device,
+                             r0=None):
     """Host arrays of one chunk -> the operands of K1 (``uniform``) or K2.
 
     Takes the arrays the JAX survey streamer hands its device step: power
-    [C, P, R] int16 indices; dr, tvg_shift, absorption, offset [C, P];
-    valid_len [C, P]; x_rel [P] sorted window-relative ping-bin ids (padding
-    parked at ``n_x_window``); r_edges [n_r+1] metres.  Builds on the host
-    the window ping bounds ``xb`` and the kernels' slab ``plan``
+    [C, P, R] int16 indices (EK) or float32 dB (AZFP, NaN-padded); dr,
+    tvg_shift, absorption, offset [C, P]; valid_len [C, P]; x_rel [P] sorted
+    window-relative ping-bin ids (padding parked at ``n_x_window``); r_edges
+    [n_r+1] metres; optionally the echo_range intercept ``r0`` [C, P]
+    (:func:`_edges_and_shift`).  Builds on the host the window ping bounds
+    ``xb`` and the kernels' slab ``plan``
     (``ops/window_partials.py::slab_plan``), the range-bin bounds and
     ``k0``, and for K1 the per-channel rows ``sprd_row`` (-inf below k0) and
     ``rt2_row``; returns a dict of tensors on ``device`` keyed by the
     kernel's argument names.  The host-to-device copies are synchronous.
     """
     power = np.asarray(power)
-    if power.dtype != np.int16:
-        raise TypeError(f"power must be int16 sample indices, got {power.dtype}")
+    if power.dtype not in (np.int16, np.float32):
+        raise TypeError(f"power must be int16 sample indices or float32 dB, got {power.dtype}")
     C, P, R = power.shape
     valid_len = np.asarray(valid_len).astype("i4")
     if valid_len.shape != (C, P) or valid_len.min(initial=0) < 0 or valid_len.max(initial=0) > R:
@@ -181,14 +208,14 @@ def kernel_inputs_from_numpy(power, dr, tvg_shift, absorption, offset, valid_len
         raise ValueError("x_rel must be [P] and non-decreasing")
     xb = np.searchsorted(x_rel, np.arange(n_x_window + 1), side="left").astype("i4")
     dr = np.asarray(dr, dtype="f4")
-    tvg_shift = np.asarray(tvg_shift, dtype="f4")
+    r_edges, tvg_shift = _edges_and_shift(r_edges, tvg_shift, r0)
 
     def dev(a, dtype="f4"):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
     bounds, k0 = closed_bounds_k0_np(dr[:, 0], tvg_shift[:, 0], r_edges, R)
     ops = {
-        "power": dev(power, "i2"),
+        "power": dev(power, power.dtype),
         "absorption": dev(absorption),
         "offset": dev(offset),
         "valid_len": dev(valid_len, "i4"),
@@ -217,7 +244,8 @@ def sv_mvbs_window_partials_uniform(
 ):
     """Window partials for per-channel uniform ``dr`` and TVG shift (K1).
 
-    Same arguments as the JAX function (host arrays; int16 power).  Returns
+    Same arguments as the JAX function (host arrays; int16 or float32 dB
+    power, under the rule of ``ops/window_partials.py``).  Returns
     (sums, counts) [C, n_x_window, n_r] float32 tensors on ``device``, or
     sums alone with ``with_counts=False`` (the survey takes its counts from
     :func:`closed_window_counts_np`).  Callers check uniformity.
@@ -232,17 +260,19 @@ def sv_mvbs_window_partials_uniform(
 
 def sv_mvbs_window_partials(
     power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r_edges,
-    n_x_window: int, n_r: int, device="cuda",
+    n_x_window: int, n_r: int, r0=None, device="cuda",
 ):
-    """Window partials with per-ping ``dr`` and TVG shift (K2), EK case.
+    """Window partials with per-ping ``dr`` and TVG shift (K2).
 
-    Range bins follow each channel's first-ping ``dr`` as in the JAX
+    The JAX function's arguments: int16 power (EK, ``r0`` None) or float32
+    dB power with the echo_range intercept ``r0`` [C, P] (AZFP).  Range
+    bins follow each channel's first-ping ``dr`` and ``r0`` as in the JAX
     function.  Returns (sums, counts) [C, n_x_window, n_r] float32 tensors
     on ``device``.
     """
     ops = kernel_inputs_from_numpy(
         power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r_edges,
-        n_x_window, uniform=False, device=resolve_device(device),
+        n_x_window, uniform=False, device=resolve_device(device), r0=r0,
     )
     _check_n_r(ops, n_r)
     return window_partials(**ops)
@@ -259,11 +289,12 @@ _CMP = {
 
 def sv_mvbs_window_partials_freqdiff(
     power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r_edges,
-    n_x_window: int, n_r: int, ia: int, ib: int, op: str, diff_db, device="cuda",
+    n_x_window: int, n_r: int, ia: int, ib: int, op: str, diff_db, r0=None, device="cuda",
 ):
     """Window partials of Sv masked by frequency differencing.
 
-    Counterpart of the JAX function (an XLA program, EK case ``r0`` = 0).
+    Counterpart of the JAX function (an XLA program; ``r0`` [C, P] the
+    echo_range intercept of AZFP, None for EK).
     Per sample ``keep = Sv[ia] - Sv[ib] <op> diff_db`` (NaN -> False, the
     reference's frequency_differencing applied to every channel as
     apply_mask does); a masked sample joins no bin.  power [C, P, R] int16
@@ -279,8 +310,9 @@ def sv_mvbs_window_partials_freqdiff(
     power = np.asarray(power)
     C, P, R = power.shape
     dr = np.asarray(dr, dtype="f4")
+    edges, _ = _edges_and_shift(r_edges, tvg_shift, r0)
     bounds, _ = closed_bounds_k0_np(dr[:, 0], np.asarray(tvg_shift, dtype="f4")[:, 0],
-                                    r_edges, R)
+                                    edges, R)
     if bounds.shape[1] != n_r + 1:
         raise ValueError(f"n_r={n_r} disagrees with {bounds.shape[1]} range edges")
 
@@ -293,7 +325,11 @@ def sv_mvbs_window_partials_freqdiff(
                          on(power, torch.int16).to(torch.float32) * INDEX2POWER, torch.nan)
     else:
         pw = on(power)
-    r_tvg = lane.to(torch.float32) * on(dr)[:, :, None] - on(tvg_shift)[:, :, None]
+    if r0 is None:
+        r_tvg = lane.to(torch.float32) * on(dr)[:, :, None] - on(tvg_shift)[:, :, None]
+    else:
+        r_tvg = (lane.to(torch.float32) * on(dr)[:, :, None]
+                 + (on(r0) - on(tvg_shift))[:, :, None])
     pos = r_tvg > 0
     sv = torch.where(
         pos,

@@ -1,4 +1,4 @@
-"""Survey streamers: raw EK60 files or Sv stores -> survey-global bins.
+"""Survey streamers: raw files or Sv stores -> survey-global bins.
 
 Counterpart of ``echopype_tpu/parallel/survey.py``.  Two families:
 
@@ -18,6 +18,9 @@ Counterpart of ``echopype_tpu/parallel/survey.py``.  Two families:
   resolve on the host; each ping chunk ships as int16 to the device, where
   one fused kernel (K1 for per-channel uniform ``dr``, K2 otherwise)
   returns its [C, window, n_r] bin partials; Sv is never materialized.
+  AZFP/AZFP6 take the eager path: their power ships as NaN-padded float32
+  dB (their counts are no int16 indices) and every chunk runs K2's float32
+  instance with the echo_range intercept ``r0``.
   EK80 complex / broadband channels: either each ping chunk calibrates
   through ``compute_Sv`` (the matched filter on the device) and its Sv bins
   on the device, or, with ``device_fused``, one device pass per (channel,
@@ -134,6 +137,7 @@ def _global_ping_bins(pt_i8, ping_edges_i8, n_x):
 
 _EK60_MODELS = ("EK60", "ES70")
 _EK80_MODELS = ("EK80", "ES80", "EA640")
+_AZFP_MODELS = ("AZFP", "AZFP6")
 _UNPORTED_ITEMS = {"mesh": 10, "workers": 9}
 
 
@@ -306,13 +310,15 @@ def _resolve_bin_m(range_bin, range_bin_m, name="range_bin") -> float:
 class _PowerChunkStreamer:
     """Per-file chunk loop shared by the streamed and eager paths.
 
-    Converts dB power back to its int16 sample indices in two alternating
-    reusable buffers, pads the last chunk (padded pings have valid length
-    0 and park past the window), and launches the chunk's kernel.
+    With ``ship_i16`` (EK power) converts dB power back to its int16 sample
+    indices in two alternating reusable buffers; otherwise (AZFP) ships the
+    float32 dB power, its padded pings NaN.  Pads the last chunk (padded
+    pings have valid length 0 and park past the window) and launches the
+    chunk's kernel.
     """
 
     def __init__(self, n_ch, chunk_pings, R_max, window, n_r, range_edges, acc, timer,
-                 device):
+                 device, ship_i16=True):
         self.chunk_pings = chunk_pings
         self.window = window
         self.n_r = n_r
@@ -320,10 +326,13 @@ class _PowerChunkStreamer:
         self.acc = acc
         self.timer = timer
         self.device = device
+        self.ship_i16 = ship_i16
         self.chunk_no = 0
-        self.inv_scale = np.float32(1.0) / np.float32(INDEX2POWER)
-        self.buf_f = np.empty((n_ch, chunk_pings, R_max), dtype="f4")
-        self.bufs_i = [np.empty((n_ch, chunk_pings, R_max), dtype="<i2") for _ in range(2)]
+        if ship_i16:
+            self.inv_scale = np.float32(1.0) / np.float32(INDEX2POWER)
+            self.buf_f = np.empty((n_ch, chunk_pings, R_max), dtype="f4")
+            self.bufs_i = [np.empty((n_ch, chunk_pings, R_max), dtype="<i2")
+                           for _ in range(2)]
 
     def _to_i16(self, power, sl, n):
         """Rows ``sl`` of dB power -> int16 indices in the next staging buffer
@@ -343,12 +352,16 @@ class _PowerChunkStreamer:
         bi[:, n:] = 0
         return bi
 
-    def stream_file(self, power, dr, shift, alpha, offset, x_idx_all, uniform, fd=None):
+    def stream_file(self, power, dr, shift, alpha, offset, x_idx_all, uniform, fd=None,
+                    r0=None):
         """Stream one file's chunks.  Uniform files run K1 with host
         closed-form counts; the others run K2, which also counts.  With
         ``fd`` (a resolved frequency-differencing criterion) every chunk
-        runs the masked step, whose counts depend on the data."""
+        runs the masked step, whose counts depend on the data.  ``r0``
+        [C, P] is the echo_range intercept (AZFP), None for EK."""
         timer, acc, chunk_pings, window = self.timer, self.acc, self.chunk_pings, self.window
+        # the device stage's own name where 4-byte float32 samples go up
+        dev_stage = "device_mvbs" if self.ship_i16 else "device_mvbs_f32"
         n_ping = power.shape[1]
         host_counts = (
             closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
@@ -366,15 +379,24 @@ class _PowerChunkStreamer:
                 a = np.asarray(a[:, sl], dtype="f4")
                 return np.pad(a, ((0, 0), (0, pad)), constant_values=fill) if pad else a
 
-            with timer.stage("to_int16"):
-                p_chunk = self._to_i16(power, sl, hi - lo)
+            if self.ship_i16:
+                with timer.stage("to_int16"):
+                    p_chunk = self._to_i16(power, sl, hi - lo)
+            else:
+                with timer.stage("pad_float32"):
+                    p_chunk = np.asarray(power[:, sl], dtype="f4")
+                    if pad:  # NaN power adds nothing to any bin
+                        p_chunk = np.pad(p_chunk, ((0, 0), (0, pad), (0, 0)),
+                                         constant_values=np.nan)
             x_rel = np.pad(x_idx_all[sl] - x_base, (0, pad), constant_values=window)
             vl_chunk = np.pad(valid_len[:, sl], ((0, 0), (0, pad)))
             args = (p_chunk, _pad2(dr, 1.0), _pad2(shift), _pad2(alpha), _pad2(offset),
                     vl_chunk, x_rel.astype("i4"), self.r_edges_f4, window, self.n_r)
-            with timer.stage("device_mvbs"):
+            r0_chunk = None if r0 is None else _pad2(r0)
+            with timer.stage(dev_stage):
                 if fd is not None:
-                    s, c = sv_mvbs_window_partials_freqdiff(*args, *fd, device=self.device)
+                    s, c = sv_mvbs_window_partials_freqdiff(*args, *fd, r0=r0_chunk,
+                                                            device=self.device)
                 elif uniform:
                     s = sv_mvbs_window_partials_uniform(
                         *args, with_counts=False, device=self.device
@@ -383,12 +405,15 @@ class _PowerChunkStreamer:
                         host_counts[0], host_counts[1], vl_chunk, x_rel, window
                     )
                 else:
-                    s, c = sv_mvbs_window_partials(*args, device=self.device)
+                    s, c = sv_mvbs_window_partials(*args, r0=r0_chunk, device=self.device)
             acc.push(s, c, x_base)
 
 
-def _is_uniform(dr, shift):
-    return bool(np.all(dr == dr[:, :1]) and np.all(shift == shift[:, :1]))
+def _is_uniform(dr, shift, r0=None):
+    """Per-channel uniform ``dr`` and shift, and no echo_range intercept:
+    the K1 path."""
+    return bool(np.all(dr == dr[:, :1]) and np.all(shift == shift[:, :1])
+                and (r0 is None or not np.any(r0)))
 
 
 def _finalize(sums, counts, chans, ping_edges, echo_range, timer, dev):
@@ -430,8 +455,8 @@ def run_survey_mvbs_from_raw(
     range_bin_m: float = None,
     device="cuda",
 ):
-    """Stream raw EK60/ES70 or EK80/ES80/EA640 files into survey-global MVBS
-    bins.
+    """Stream raw EK60/ES70, EK80/ES80/EA640 or AZFP/AZFP6 files into
+    survey-global MVBS bins.
 
     The arguments are the JAX package's; ``device`` ("cuda" by default,
     "cpu" for the plain PyTorch path) is where the device work runs.
@@ -441,7 +466,11 @@ def run_survey_mvbs_from_raw(
     header-only extent scan fixes the bin grids; each file decodes on a
     background thread while the previous one streams); otherwise, or when
     the scan cannot cover the survey, the eager two-pass path runs.  Both
-    give the same bins.
+    give the same bins.  AZFP/AZFP6 (``xml_path`` for AZFP; salinity and
+    pressure in ``env_params``) take the eager path: power ships as float32
+    dB and each chunk runs K2's float32 instance with the echo_range
+    intercept ``r0`` (AZFP echo_range is ``r0 + k dr``), as the JAX
+    package's XLA step does.
     ``waveform_mode`` / ``encode_mode`` ("BB"|"FM"|"CW", "complex") stream
     EK80 complex channels: each ping chunk calibrates through compute_Sv
     (the matched filter on ``device``, the rest host float64) and bins on
@@ -464,22 +493,17 @@ def run_survey_mvbs_from_raw(
     mode) that :func:`run_survey_mvbs` masks and bins, one file in memory
     at a time.
 
-    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): AZFP /
-    AZFP6 (item 11), ``workers`` (9) and ``mesh`` (10).
+    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1):
+    ``workers`` (item 9) and ``mesh`` (10).
 
     Returns an MVBS Dataset on the global (ping_time bin, range bin) grid;
     ``attrs["device"]`` names the device and ``attrs["stage_timing"]`` holds
     the host wall time per stage.
     """
-    if sonar_model in ("AZFP", "AZFP6"):
-        raise NotImplementedError(
-            f"{sonar_model} survey streaming is not ported to echopype_torch yet "
-            "(ROADMAP Queue 1 item 11); use echopype_tpu"
-        )
-    if sonar_model not in _EK60_MODELS + _EK80_MODELS:
+    if sonar_model not in _EK60_MODELS + _EK80_MODELS + _AZFP_MODELS:
         raise ValueError(
-            "run_survey_mvbs_from_raw supports EK60/ES70 and EK80/ES80/EA640, "
-            f"not {sonar_model!r}"
+            "run_survey_mvbs_from_raw supports EK60/ES70/EK80/ES80/EA640/AZFP/AZFP6 "
+            f"power mode, not {sonar_model!r}"
         )
     _refuse_unported(workers=workers or None, mesh=mesh)
     _check_noise_masks(noise_masks)
@@ -506,6 +530,11 @@ def run_survey_mvbs_from_raw(
     if sonar_model in _EK60_MODELS:
         def make_cal(ed):
             return CalibrateEK60(ed, env_params, cal_params)
+    elif sonar_model in _AZFP_MODELS:
+        from ..calibrate.azfp import CalibrateAZFP
+
+        def make_cal(ed):
+            return CalibrateAZFP(ed, env_params, cal_params, device=dev)
     else:
         from ..calibrate.ek80 import CalibrateEK80
 
@@ -550,7 +579,8 @@ def _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_
 
 def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
     """Decode one file and resolve its sonar-equation inputs (host): power,
-    dr, shift, alpha, offset, ping_time, channels, frequency_nominal."""
+    dr, shift, alpha, offset, r0 (the echo_range intercept of AZFP, None for
+    EK), ping_time, channels, frequency_nominal."""
     ed = open_raw(f, sonar_model=sonar_model, use_swap=use_swap, xml_path=xml_path)
     try:
         cal = make_cal(ed)
@@ -558,10 +588,16 @@ def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
         raise ValueError(f"{f}: could not set up power-mode calibration ({e!r}).") from e
     pt = np.asarray(cal.beam.coords["ping_time"].values, dtype="datetime64[ns]")
     chans = list(cal.beam.coords["channel"].values)
-    power, dr, shift, alpha, offset, _ = cal._power_cal_inputs("Sv")
-    power, dr, shift, alpha, offset = _sanitize_power_cal_inputs(power, dr, shift, alpha, offset)
+    power, dr, shift, alpha, offset, last = cal._power_cal_inputs("Sv")
+    if sonar_model in _AZFP_MODELS:  # the last input is r0 (EK: tau_effective)
+        power, dr, shift, alpha, offset, r0 = _sanitize_power_cal_inputs(
+            power, dr, shift, alpha, offset, last)
+    else:
+        power, dr, shift, alpha, offset = _sanitize_power_cal_inputs(
+            power, dr, shift, alpha, offset)
+        r0 = None
     freq = np.asarray(cal.beam["frequency_nominal"].values, dtype="f8")
-    return power, dr, shift, alpha, offset, pt, chans, freq
+    return power, dr, shift, alpha, offset, r0, pt, chans, freq
 
 
 def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
@@ -572,31 +608,36 @@ def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
     with timer.stage("ingest"):
         for f in raw_files:
             loaded.append(_load_inputs(f, sonar_model, use_swap, xml_path, make_cal))
-    chans = loaded[0][6]
-    if any(item[6] != chans for item in loaded[1:]):
+    chans = loaded[0][7]
+    if any(item[7] != chans for item in loaded[1:]):
         raise ValueError("all raw files must share the same channels")
 
-    t_min = min(item[5].min() for item in loaded)
-    t_max = max(item[5].max() for item in loaded)
+    t_min = min(item[6].min() for item in loaded)
+    t_max = max(item[6].max() for item in loaded)
     ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
                                      ping_time_bin)
-    # the last SAMPLE is at (R-1)*dr
-    r_max = max(float(np.nanmax(item[1])) * (item[0].shape[2] - 1) for item in loaded)
+    # the last SAMPLE is at r0 + (R-1)*dr
+    r_max = max(
+        (0.0 if item[5] is None else float(np.nanmax(item[5])))
+        + float(np.nanmax(item[1])) * (item[0].shape[2] - 1)
+        for item in loaded
+    )
     range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
     n_x, n_r = len(ping_edges) - 1, len(range_edges) - 1
 
     ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
-    x_ids = [_global_ping_bins(item[5].astype("i8"), ping_edges_i8, n_x) for item in loaded]
+    x_ids = [_global_ping_bins(item[6].astype("i8"), ping_edges_i8, n_x) for item in loaded]
     window = _widest_window(x_ids, chunk_pings)
 
-    fd = _resolve_freq_diff(freq_diff, chans, loaded[0][7])
+    fd = _resolve_freq_diff(freq_diff, chans, loaded[0][8])
     acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
     R_max = max(item[0].shape[2] for item in loaded)
     streamer = _PowerChunkStreamer(len(chans), chunk_pings, R_max, window, n_r,
-                                   range_edges, acc, timer, dev)
-    for (power, dr, shift, alpha, offset, *_), x_idx_all in zip(loaded, x_ids):
+                                   range_edges, acc, timer, dev,
+                                   ship_i16=sonar_model not in _AZFP_MODELS)
+    for (power, dr, shift, alpha, offset, r0, *_), x_idx_all in zip(loaded, x_ids):
         streamer.stream_file(power, dr, shift, alpha, offset, x_idx_all,
-                             _is_uniform(dr, shift), fd)
+                             _is_uniform(dr, shift, r0), fd, r0=r0)
     sums, counts = acc.finish()
     return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
 
@@ -666,7 +707,7 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
         if len(raw_files) > 1:
             warm_ex.submit(_warm, raw_files[1])
         for i in range(len(raw_files)):
-            power, dr, shift, alpha, offset, pt, chans, _ = fut.result()
+            power, dr, shift, alpha, offset, _, pt, chans, _ = fut.result()
             if i + 1 < len(raw_files):
                 fut = ex.submit(load, raw_files[i + 1])
             if i + 2 < len(raw_files):

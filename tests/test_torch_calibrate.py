@@ -104,14 +104,21 @@ def test_invalid_modes_raise(ek60_files):
 
 @pytest.mark.parametrize("case", ["AZFP", "AZFP6", "ecs_file"])
 def test_unported_inputs_raise(ek60_files, case):
-    ed = et.open_raw(ek60_files["plain"], sonar_model="EK60")
-    kw = {}
-    if case == "ecs_file":
-        kw["ecs_file"] = "calibration.ecs"
-    else:
-        ed.sonar_model = case
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        et.calibrate.compute_Sv(ed, device="cpu", **kw)
+    """AZFP/AZFP6 calibration and ``ecs_file`` are ported
+    (tests/test_torch_calibrate_azfp.py, test_torch_ecs.py): EK60 data
+    labelled AZFP lacks the salinity AZFP needs, and a missing ECS file is
+    not found, in the port as in the JAX package."""
+    err, match = ((FileNotFoundError, "calibration.ecs") if case == "ecs_file"
+                  else (ReferenceError, "salinity"))
+    for pkg, extra in ((et, {"device": "cpu"}), (ep, {})):
+        ed = pkg.open_raw(ek60_files["plain"], sonar_model="EK60")
+        kw = dict(extra)
+        if case == "ecs_file":
+            kw["ecs_file"] = "calibration.ecs"
+        else:
+            ed.sonar_model = case
+        with pytest.raises(err, match=match):
+            pkg.calibrate.compute_Sv(ed, **kw)
 
 
 def test_cuda_request_without_cuda_raises(ek60_files):

@@ -11,16 +11,21 @@ port writes must open with ``echopype_tpu.open_converted`` to the same
 groups.
 """
 
+import re
+
 import numpy as np
 import pytest
 
 import echopype_torch as et
 import echopype_tpu as ep
 from echopype_torch import native as t_native
+from echopype_torch.core import SONAR_MODELS
 from echopype_torch.convert.simrad import framing as t_framing
 from echopype_torch.xrlite import Dataset as TDataset
 
 from synth_ek60 import write_ek60_raw
+
+SONAR_MODELS_EXT = {m: v["ext"] for m, v in SONAR_MODELS.items()}
 
 # attrs that carry the wall clock of the conversion itself
 CLOCK_ATTRS = ("date_created", "conversion_time")
@@ -101,8 +106,13 @@ class TestOpenRaw:
 
     @pytest.mark.parametrize("model", ["AZFP", "AZFP6", "AD2CP"])
     def test_unported_models_raise(self, raw_files, model):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-            et.open_raw(raw_files["plain"], sonar_model=model)
+        """AZFP, AZFP6 and AD2CP now convert in the port
+        (tests/test_torch_convert_azfp.py, test_torch_ad2cp.py); a file of
+        another model raises the JAX package's extension error."""
+        want = SONAR_MODELS_EXT[model]
+        for pkg in (et, ep):
+            with pytest.raises(ValueError, match=f"Expected a {re.escape(want)} file"):
+                pkg.open_raw(raw_files["plain"], sonar_model=model)
 
     def test_unknown_model_raises(self, raw_files):
         with pytest.raises(ValueError, match="Unsupported sonar_model"):

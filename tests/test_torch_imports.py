@@ -8,8 +8,12 @@ raw->MVBS survey, ``open_raw`` -> ``compute_Sv`` -> ``compute_MVBS`` /
 ``run_survey_nasc``, EK80: ``open_raw`` -> BB ``compute_Sv`` and the
 fused BB survey (``device_fused=True``), and the masks: ``clean.mask_*``,
 ``mask.frequency_differencing`` -> ``apply_mask``, and the survey
-streamers with ``freq_diff`` and ``noise_masks``, on the CPU; none of the
-four may be loaded afterwards.
+streamers with ``freq_diff`` and ``noise_masks``, and the other instruments:
+AZFP ``open_raw`` -> ``compute_Sv`` and the AZFP raw survey (plain,
+``freq_diff``), AD2CP ``open_raw`` and ``compute_Sv(ecs_file=)`` on EK60,
+on the CPU (the AD2CP and ECS files come from test helpers that import the
+JAX package, so this process writes them first); none of the four may be
+loaded afterwards.
 An AST scan holds the package's sources and ``chip_smoke.py`` to the same
 rule, including imports inside functions.
 """
@@ -97,6 +101,24 @@ _SCRIPT = textwrap.dedent(
     nm = et.run_survey_mvbs([sv], range_bin="5m", ping_time_bin="10s", device="cpu",
                             noise_masks={"impulse": dict(depth_bin="4m")})
     assert np.isfinite(fd_raw["Sv"].values).any() and np.isfinite(nm["Sv"].values).any()
+    from synth_azfp import write_azfp_raw, write_azfp_xml
+
+    azfp, xml = path.replace(".raw", ".01A"), path.replace(".raw", ".XML")
+    write_azfp_xml(xml)
+    write_azfp_raw(azfp, n_pings=8)
+    env = {"salinity": 32.0, "pressure": 60.0}
+    ed_az = et.open_raw(azfp, sonar_model="AZFP", xml_path=xml)
+    sv_az = et.calibrate.compute_Sv(ed_az, env_params=env, device="cpu")
+    kw_az = dict(sonar_model="AZFP", xml_path=xml, env_params=env, range_bin="2m",
+                 ping_time_bin="4s", chunk_pings=3, device="cpu")
+    az = et.run_survey_mvbs_from_raw([azfp], **kw_az)
+    az_fd = et.run_survey_mvbs_from_raw([azfp], freq_diff="125kHz - 38kHz > 3.0dB", **kw_az)
+    assert np.isfinite(sv_az["Sv"].values).all() and np.isfinite(az["Sv"].values).any()
+    assert az_fd["Sv"].values.shape == az["Sv"].values.shape
+    ad = et.open_raw(sys.argv[3], sonar_model="AD2CP")
+    assert "Sonar/Beam_group1" in ad.group_paths
+    sv_ecs = et.calibrate.compute_Sv(ed, ecs_file=sys.argv[4], device="cpu")
+    np.testing.assert_allclose(np.asarray(sv_ecs["sound_speed"].values), 1473.0)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("LOADED", loaded)
     """
@@ -104,8 +126,15 @@ _SCRIPT = textwrap.dedent(
 
 
 def test_port_runs_without_jax_or_pandas(tmp_path):
+    from test_ad2cp import write_ad2cp
+    from test_ecs import ECS_CONTENT
+
+    ad2cp, ecs = tmp_path / "m.ad2cp", tmp_path / "cal.ecs"
+    write_ad2cp(ad2cp, with_bottom_track=True, with_echosounder_raw=True)
+    ecs.write_text(ECS_CONTENT)
     res = subprocess.run(
-        [sys.executable, "-c", _SCRIPT, str(REPO), str(tmp_path / "g-D20200101-T000000.raw")],
+        [sys.executable, "-c", _SCRIPT, str(REPO), str(tmp_path / "g-D20200101-T000000.raw"),
+         str(ad2cp), str(ecs)],
         capture_output=True, text=True, timeout=300, cwd=tmp_path,
     )
     assert res.returncode == 0, res.stderr[-4000:]

@@ -15,6 +15,11 @@ pings, a TVG shift off the sample grid, rows longer than one shared-memory
 segment, and pings outside the ping bins.  K1 / K2 also at the slab
 plan's edges: one window (many slabs), one ping a window, windows longer
 than one slab, and rows of R = 4001 (not 16-byte aligned: scalar loads).
+Their float32 dB instances (the AZFP path's type) the same way, with NaN
+rows (suffix, whole ping, inside a ping) at R = 4001, 1000 (the AZFP
+width) and 1004 (rows ending mid-thread), one ping, one window and long
+windows, and the AZFP chunk step with the echo_range intercept against
+the CPU.
 K4 also at its work split's edges (bins narrower than a thread's 16
 samples, one-sample, empty and clipped bins, R = 4001 and 9000, P = 1 and
 P = 33), and K3 / K4 on poisoned rows (a valid sample whose linear value
@@ -51,6 +56,7 @@ import torch
 from echopype_torch.ops import binning as tb
 from echopype_torch.ops import sv_bin_partials as sbp
 from echopype_torch.ops import window_partials as wp
+from echopype_torch.parallel import pipeline as tp
 from echopype_torch.parallel.pipeline import kernel_inputs_from_numpy
 
 pytestmark = pytest.mark.gpu
@@ -168,7 +174,7 @@ def test_wrapper_rejects_bad_operands(cuda):
     ops = kernel_inputs_from_numpy(*_chunk(2), uniform=True, device=cuda)
     wp.reset_launches()
     with pytest.raises(TypeError, match="int16"):
-        wp.window_partials_uniform(**{**ops, "power": ops["power"].float()})
+        wp.window_partials_uniform(**{**ops, "power": ops["power"].double()})
     with pytest.raises(ValueError, match="contiguous"):
         wp.window_partials_uniform(**{**ops, "power": ops["power"].transpose(1, 2)
                                       .contiguous().transpose(1, 2)})
@@ -177,6 +183,69 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="plan"):
         wp.window_partials_uniform(**{**ops, "plan": ops["plan"][:4].contiguous()})
     assert wp.LAUNCHES["window_partials_uniform"] == 0
+
+
+def _chunk_f32(seed, **kw):
+    """``_chunk`` as float32 dB power (the AZFP path's type): NaN past each
+    valid length, one all-NaN ping, one NaN inside a ping; valid lengths
+    recounted as the non-NaN samples."""
+    power, dr, shift, ab, off, vl, ids, edges, W = _chunk(seed, **kw)
+    vl[:, 0] = power.shape[2]  # ping 0 whole (``_chunk`` empties it), for P = 1
+    db = (power * np.float32(wp.INDEX2POWER)).astype("f4")
+    db[np.arange(db.shape[2])[None, None, :] >= vl[:, :, None]] = np.nan
+    db[0, min(3, db.shape[1] - 1)] = np.nan
+    db[-1, 0, min(40, db.shape[2] - 1)] = np.nan
+    vl = (~np.isnan(db)).sum(axis=2).astype("i4")
+    return db, dr, shift, ab, off, vl, ids, edges, W
+
+
+# (P, R, W, ping-bin ids) of the float32 instances: rows not 16-byte
+# aligned (scalar loads), the AZFP width, rows ending mid-thread (R % 8 ==
+# 4: the second 16-byte load left out), one ping, one window, long windows
+F32_CASES = {
+    "unaligned_rows": (150, 4001, 4, np.sort(np.arange(150) % 4).astype("i4")),
+    "azfp_width": (300, 1000, 9, None),
+    "row_ends_mid_thread": (200, 1004, 5, np.sort(np.arange(200) % 5).astype("i4")),
+    "one_ping": (1, 700, 1, np.zeros(1, "i4")),
+    "one_window": (300, 700, 1, np.zeros(300, "i4")),
+    "long_windows": (300, 700, 3, np.repeat(np.arange(3), 100).astype("i4")),
+}
+
+
+@pytest.mark.parametrize("uniform", [True, False], ids=["K1_f32", "K2_f32"])
+@pytest.mark.parametrize("case", sorted(F32_CASES))
+def test_f32_instances_match_plain(cuda, uniform, case):
+    P, R, W, ids = F32_CASES[case]
+    args = _chunk_f32(11, P=P, R=R, W=W, vary_dr=not uniform, ids=ids)
+    ops = kernel_inputs_from_numpy(*args, uniform=uniform, device=cuda)
+    assert ops["power"].dtype == torch.float32
+    if uniform:
+        c_g = _compare(wp.window_partials_uniform, wp.window_partials_uniform_plain,
+                       "window_partials_uniform_f32", ops)
+    else:
+        c_g = _compare(wp.window_partials, wp.window_partials_plain, "window_partials_f32", ops)
+    assert (c_g > 0).any()
+    assert wp.LAUNCHES["window_partials_uniform"] == wp.LAUNCHES["window_partials"] == 0
+
+
+def test_f32_r0_step_matches_cpu(cuda):
+    """The AZFP chunk step (K2-f32 with the echo_range intercept) on the
+    card against the same call on the CPU, and rerun bit-identical."""
+    power, dr, shift, ab, off, vl, ids, edges, W = _chunk_f32(12, P=200, R=1000, W=6)
+    shift = np.zeros_like(shift)
+    r0 = np.tile(np.random.default_rng(3).uniform(0.3, 1.5, (power.shape[0], 1)),
+                 (1, power.shape[1])).astype("f4")
+    args = (power, dr, shift, ab, off, vl, ids, edges, W, len(edges) - 1)
+    wp.reset_launches()
+    on_card = tp.sv_mvbs_window_partials(*args, r0=r0, device=cuda)
+    again = tp.sv_mvbs_window_partials(*args, r0=r0, device=cuda)
+    assert wp.LAUNCHES["window_partials_f32"] == 2
+    on_cpu = tp.sv_mvbs_window_partials(*args, r0=r0, device="cpu")
+    for g, a in zip(on_card, again):
+        assert torch.equal(g, a)
+    np.testing.assert_array_equal(on_card[1].cpu().numpy(), on_cpu[1].numpy())
+    np.testing.assert_allclose(on_card[0].cpu().numpy(), on_cpu[0].numpy(), rtol=1e-5,
+                               atol=1e-30)
 
 
 def _fused_chunk(seed, C=3, P=157, R=700, n_x=9):

@@ -87,7 +87,7 @@ def _both(files, **kw):
 def test_power_leg_matches_jax(raw, prefetch):
     wp.reset_launches()
     got, want = _both(raw["mixed"], range_bin="5m", ping_time_bin="5s", prefetch=prefetch)
-    assert wp.LAUNCHES == {"window_partials_uniform": 0, "window_partials": 0}
+    assert not any(wp.LAUNCHES.values())
     _assert_mvbs_close(got, want, 1e-5)
     assert len(got.coords["channel"].values) == 1  # the GPT power channel
 

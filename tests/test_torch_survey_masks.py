@@ -194,7 +194,7 @@ class TestFreqDiffPower:
         got = et.run_survey_mvbs_from_raw([ek60_file], sonar_model="EK60", range_bin_m=21.3,
                                           ping_time_bin="5s", chunk_pings=16, freq_diff=eq,
                                           device="cpu")
-        assert wp.LAUNCHES == {"window_partials_uniform": 0, "window_partials": 0}
+        assert not any(wp.LAUNCHES.values())
         gv = np.asarray(got["Sv"].values)
         wv = want["Sv"].transpose("channel", "ping_time", "echo_range").values
         nb, nr = min(gv.shape[1], wv.shape[1]), min(gv.shape[2], wv.shape[2])

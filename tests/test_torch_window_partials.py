@@ -69,7 +69,7 @@ def _no_launches():
     """On the CPU the wrappers run their plain twins: no kernel launches."""
     wp.reset_launches()
     yield
-    assert wp.LAUNCHES == {"window_partials_uniform": 0, "window_partials": 0}
+    assert not any(wp.LAUNCHES.values())
 
 
 class TestUniformK1:
@@ -230,10 +230,12 @@ class TestHostHelpers:
 
 class TestDispatch:
     def test_power_must_be_int16(self):
+        """Power is int16 indices or float32 dB; any other type raises."""
         args = list(_uniform_inputs())
-        args[0] = args[0].astype("f4")
-        with pytest.raises(TypeError, match="int16"):
-            tp.sv_mvbs_window_partials_uniform(*args, device="cpu")
+        for dtype in ("f8", "i4", "u2"):
+            args[0] = args[0].astype(dtype)
+            with pytest.raises(TypeError, match="int16"):
+                tp.sv_mvbs_window_partials_uniform(*args, device="cpu")
 
     def test_rejects_unsorted_ids_and_bad_lengths(self):
         args = list(_uniform_inputs())
@@ -329,26 +331,28 @@ class TestSlabPlan:
 
 def _kernel_model(ops, uniform):
     """The CUDA kernels' decomposition in float64 numpy: per (channel, slab)
-    per-sample sums over the slab's pings, masked k0 <= k < valid_len, then
+    per-sample sums over the slab's pings, masked k0 <= k < valid_len (float32
+    dB power: k0 <= k where Sv is not NaN), then
     range-bin sums; closed-form int counts per slab; slab partials added in
     slab order per window."""
     o = {k: _np(v) for k, v in ops.items()}
-    power = o["power"].astype("f8")
+    db = o["power"].dtype == np.float32  # float32 dB: no scale, a NaN Sv adds 0
+    power = o["power"].astype("f8") * (1.0 if db else wp.INDEX2POWER)
     C, P, R = power.shape
     bounds, vl = o["bounds"], o["valid_len"]
     W = o["xb"].size - 1
     sb, wf = _plan_parts(o["plan"], o["xb"])
     k = np.arange(R)
     if uniform:
-        sv = (power * wp.INDEX2POWER + o["sprd_row"][:, None, :]
+        sv = (power + o["sprd_row"][:, None, :]
               + o["absorption"][..., None] * o["rt2_row"][:, None, :] + o["offset"][..., None])
         k0 = np.zeros((C, P), "i8")
     else:
         r = k * o["dr"][..., None].astype("f8") - o["tvg_shift"][..., None]
-        sv = (power * wp.INDEX2POWER + 20 * np.log10(np.maximum(r, 1e-20))
+        sv = (power + 20 * np.log10(np.maximum(r, 1e-20))
               + 2 * o["absorption"][..., None] * r + o["offset"][..., None])
         k0 = o["k0"]
-    valid = (k >= k0[..., None]) & (k < vl[..., None])
+    valid = (k >= k0[..., None]) & (~np.isnan(sv) if db else (k < vl[..., None]))
     lin = np.where(valid, np.exp(sv * wp.LN10_OVER_10), 0.0)
     n_slabs, n_r = sb.size - 1, bounds.shape[1] - 1
     ps = np.zeros((C, n_slabs, n_r))
@@ -383,6 +387,197 @@ class TestKernelDecomposition:
             args[6], args[8] = np.arange(P, dtype="i4"), P
         args[6] = args[6].copy()
         args[6][-3:] = args[8]  # parked padding past the last window
+        ops = tp.kernel_inputs_from_numpy(*args, uniform=uniform, device="cpu")
+        twin = (wp.window_partials_uniform_plain if uniform else wp.window_partials_plain)(
+            **{k: v for k, v in ops.items() if k != "plan"})
+        sums, counts = _kernel_model(ops, uniform)
+        np.testing.assert_array_equal(counts, _np(twin[1]))
+        np.testing.assert_allclose(sums, _np(twin[0]), rtol=RTOL, atol=ATOL)
+
+
+# ------------------------------------------------ float32 dB power (AZFP)
+def _as_db(args):
+    """The int16 inputs as float32 dB power, NaN past each valid length
+    (the AZFP streamer's ragged NaN suffix)."""
+    args = list(args)
+    power, vl = args[0], args[5]
+    db = (power * np.float32(wp.INDEX2POWER)).astype("f4")
+    db[np.arange(power.shape[2])[None, None, :] >= vl[:, :, None]] = np.nan
+    args[0] = db
+    return args
+
+
+def _azfp_inputs(seed=0, vary=False, nan_rows=True):
+    """A float32 dB chunk shaped as the AZFP streamer ships it: power
+    counts / (26214 DS) NaN-padded, range r0 + k dr (the echo_range
+    intercept ``r0``), no TVG shift.  ``nan_rows``: one channel's pings end
+    early (ragged bins), one ping is all NaN (valid length 0), one sample
+    inside a ping is NaN, and the last pings park past the window."""
+    rng = np.random.default_rng(seed)
+    C, P, R, W = 3, 96, 200, 5
+    power = (rng.integers(0, 60000, (C, P, R)) / (26214.0 * 0.0242)).astype("f4")
+    dr = np.tile(rng.uniform(0.05, 0.12, (C, 1)), (1, P)).astype("f4")
+    r0 = np.tile(rng.uniform(0.3, 1.5, (C, 1)), (1, P)).astype("f4")
+    if vary:  # sound speed by ping: dr and r0 move together
+        scale = rng.uniform(0.99, 1.01, (C, P))
+        dr, r0 = (dr * scale).astype("f4"), (r0 * scale).astype("f4")
+    shift = np.zeros((C, P), "f4")
+    ab = np.tile(rng.uniform(0.005, 0.1, (C, 1)), (1, P)).astype("f4")
+    off = rng.normal(-160.0, 3.0, (C, P)).astype("f4")
+    x_rel = np.sort(rng.integers(0, W, P)).astype("i4")
+    if nan_rows:
+        power[2, :, 150:] = np.nan  # a channel of fewer bins
+        power[1, 5] = np.nan  # a killed ping
+        power[0, 7, 33] = np.nan  # one NaN inside a ping
+        x_rel[-4:] = W  # padding parked past the window
+    vl = (~np.isnan(power)).sum(axis=2).astype("i4")
+    r_max = float(r0.max()) + float(dr.max()) * (R - 1)
+    r_edges = np.arange(0, r_max + 2.0, 2.0).astype("f4")
+    return power, dr, shift, ab, off, vl, x_rel, r_edges, W, len(r_edges) - 1, r0
+
+
+class TestFloat32Power:
+    """float32 dB power, the type the Pallas kernels also take and the AZFP
+    survey ships: held to the Pallas kernels (interpret) where there is no
+    NaN, and to the XLA step the JAX survey runs (``_closed_s1_n1``: a NaN
+    Sv adds 0, counts closed form from the valid length) everywhere."""
+
+    def test_uniform_matches_pallas_interpret(self):
+        power, dr, tvg, ab, off, vl, x_rel, r_edges, W, n_r = _uniform_inputs(seed=5)
+        power = (power * np.float32(wp.INDEX2POWER)).astype("f4")
+        vl = np.full_like(vl, power.shape[2])  # no NaN: the Pallas body masks by vl
+        R = power.shape[2]
+        dr0, sh0 = jnp.asarray(dr[:, 0]), jnp.asarray(tvg[:, 0])
+        k = jnp.arange(R, dtype=jnp.float32)[None, :]
+        rt = k * dr0[:, None] - sh0[:, None]
+        k0 = jp._refine_k0(jnp.floor(sh0 / dr0) + 1.0, dr0, sh0)
+        sprd = jnp.where(k >= k0[:, None], 20.0 * jnp.log10(jnp.maximum(rt, 1e-20)), -jnp.inf)
+        edges = jnp.asarray(r_edges)[None, :]
+        bounds = jnp.clip(jp._refine_bounds(jnp.ceil(edges / dr0[:, None]), dr0, edges),
+                          k0[:, None], R)
+        s_p, c_p = window_partials_pallas_uniform(
+            jnp.asarray(power), sprd, 2.0 * rt, jnp.asarray(ab), jnp.asarray(off),
+            jnp.asarray(vl.astype("f4")), jnp.asarray(x_rel), bounds, W, n_r,
+            tile_p=128, interpret=True)
+        ops = tp.kernel_inputs_from_numpy(power, dr, tvg, ab, off, vl, x_rel, r_edges, W,
+                                          uniform=True, device="cpu")
+        assert ops["power"].dtype == torch.float32
+        s_t, c_t = wp.window_partials_uniform(**ops)
+        np.testing.assert_array_equal(_np(c_t), np.asarray(c_p))
+        np.testing.assert_allclose(_np(s_t), np.asarray(s_p), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("vary_dr", [False, True])
+    def test_per_ping_matches_pallas_interpret(self, vary_dr):
+        power, dr, shift, ab, off, vl, x_rel, r_edges, n_x, n_r = _varying_inputs(
+            seed=3, vary_dr=vary_dr)
+        power = (power * np.float32(wp.INDEX2POWER)).astype("f4")
+        vl = np.full_like(vl, power.shape[2])
+        R = power.shape[2]
+        k0 = np.maximum(np.floor(shift.astype("f8") / dr.astype("f8")) + 1, 0).astype("f4")
+        bounds = np.clip(
+            np.ceil(r_edges[None, :].astype("f8") / dr[:, 0:1].astype("f8")), 0, R
+        ).astype("f4")
+        s_p, c_p = window_partials_pallas(
+            power, dr, shift, ab, off, k0, vl.astype("f4"), x_rel, bounds,
+            n_x, n_r, tile_p=64, interpret=True,
+        )
+        ops = tp.kernel_inputs_from_numpy(power, dr, shift, ab, off, vl, x_rel, r_edges, n_x,
+                                          uniform=False, device="cpu")
+        s_t, c_t = wp.window_partials(**ops)
+        np.testing.assert_array_equal(_np(c_t), np.asarray(c_p))
+        np.testing.assert_allclose(_np(s_t), np.asarray(s_p), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("vary", [False, True], ids=["uniform_r0", "r0_by_ping"])
+    @pytest.mark.parametrize("nan_rows", [False, True], ids=["dense", "nan_rows"])
+    def test_r0_matches_xla(self, vary, nan_rows):
+        """K2-f32 with the echo_range intercept against the JAX
+        ``sv_mvbs_window_partials(..., r0=)``: NaN suffix, killed ping,
+        interior NaN and parked pings included."""
+        *args, r0 = _azfp_inputs(seed=1, vary=vary, nan_rows=nan_rows)
+        s0, c0 = jp.sv_mvbs_window_partials(*[jnp.asarray(a) for a in args[:8]], *args[8:],
+                                            r0=jnp.asarray(r0))
+        s1, c1 = tp.sv_mvbs_window_partials(*args, r0=r0, device="cpu")
+        np.testing.assert_array_equal(_np(c1), np.asarray(c0))
+        np.testing.assert_allclose(_np(s1), np.asarray(s0), rtol=RTOL, atol=ATOL)
+        assert np.isfinite(_np(s1)).all()
+
+    def test_nan_rule_is_xla_not_pallas(self):
+        """An interior NaN adds 0 to its bin (the XLA step's rule) where the
+        Pallas body spreads it: the port follows XLA (ROADMAP Queue 3)."""
+        args = _as_db(_varying_inputs(seed=2))
+        args[5] = np.full_like(args[5], args[0].shape[2])
+        args[0][0, 3, 40] = np.nan
+        args[5] = (~np.isnan(args[0])).sum(axis=2).astype("i4")
+        s0, c0 = jp.sv_mvbs_window_partials(*[jnp.asarray(a) for a in args[:8]], *args[8:])
+        s1, c1 = tp.sv_mvbs_window_partials(*args, device="cpu")
+        np.testing.assert_array_equal(_np(c1), np.asarray(c0))
+        np.testing.assert_allclose(_np(s1), np.asarray(s0), rtol=RTOL, atol=ATOL)
+        power, dr, shift, ab, off, vl, x_rel, r_edges, n_x, n_r = args
+        k0 = np.maximum(np.floor(shift.astype("f8") / dr.astype("f8")) + 1, 0).astype("f4")
+        bounds = np.clip(np.ceil(r_edges[None, :].astype("f8") / dr[:, 0:1].astype("f8")),
+                         0, power.shape[2]).astype("f4")
+        s_p, _ = window_partials_pallas(power, dr, shift, ab, off, k0, vl.astype("f4"), x_rel,
+                                        bounds, n_x, n_r, tile_p=64, interpret=True)
+        assert np.isnan(np.asarray(s_p)[0]).any() and np.isfinite(_np(s1)).all()
+
+    def test_uniform_f32_follows_the_xla_rule(self):
+        """K1-f32 on a uniform chunk with NaN rows equals the XLA per-ping
+        step (the rule of K2-f32): the two instances agree."""
+        args = _as_db(_uniform_inputs(seed=9))
+        args[0][1, 10, 50] = np.nan
+        args[0][0, 20] = np.nan
+        args[5] = (~np.isnan(args[0])).sum(axis=2).astype("i4")
+        s0, c0 = jp.sv_mvbs_window_partials(*[jnp.asarray(a) for a in args[:8]], *args[8:])
+        s1, c1 = tp.sv_mvbs_window_partials_uniform(*args, device="cpu")
+        s2, c2 = tp.sv_mvbs_window_partials(*args, device="cpu")
+        for s, c in ((s1, c1), (s2, c2)):
+            np.testing.assert_array_equal(_np(c), np.asarray(c0))
+            np.testing.assert_allclose(_np(s), np.asarray(s0), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("vary", [False, True], ids=["uniform_r0", "r0_by_ping"])
+    def test_freqdiff_r0_matches_xla(self, vary):
+        *args, r0 = _azfp_inputs(seed=4, vary=vary)
+        fd = (2, 0, ">", 3.0)
+        s0, c0 = jp.sv_mvbs_window_partials_freqdiff(
+            *[jnp.asarray(a) for a in args[:8]], *args[8:], *fd[:3], jnp.float32(fd[3]),
+            r0=jnp.asarray(r0))
+        s1, c1 = tp.sv_mvbs_window_partials_freqdiff(*args, *fd, r0=r0, device="cpu")
+        np.testing.assert_array_equal(_np(c1), np.asarray(c0))
+        np.testing.assert_allclose(_np(s1), np.asarray(s0), rtol=RTOL, atol=ATOL)
+
+    @pytest.mark.parametrize("seed", range(6))
+    def test_r0_bounds_and_k0_bit_identical(self, seed):
+        """The host bounds and k0 with ``r0`` equal ``_closed_s1_n1``'s: edges
+        less ping 0's intercept over ping 0's dr, k0 from tvg_shift - r0 by
+        ping."""
+        power, dr, shift, ab, off, vl, x_rel, r_edges, W, n_r, r0 = _azfp_inputs(
+            seed=seed, vary=seed % 2 == 1)
+        if seed >= 4:  # a TVG shift too, some on the sample grid
+            shift = (dr * np.random.default_rng(seed).integers(0, 4, dr.shape)).astype("f4")
+        R = power.shape[2]
+        ops = tp.kernel_inputs_from_numpy(power, dr, shift, ab, off, vl, x_rel, r_edges, W,
+                                          uniform=False, device="cpu", r0=r0)
+        j_dr, j_r0, j_shift = jnp.asarray(dr), jnp.asarray(r0), jnp.asarray(shift)
+        dr0 = j_dr[:, 0]
+        edge_off = jnp.asarray(r_edges)[None, :] - j_r0[:, 0][:, None]
+        bounds = jnp.clip(jp._refine_bounds(jnp.ceil(edge_off / dr0[:, None]), dr0, edge_off),
+                          0, R)
+        shift_eff = j_shift - j_r0
+        k0 = jp._refine_k0(jnp.floor(shift_eff / j_dr) + 1.0, j_dr, shift_eff)
+        np.testing.assert_array_equal(_np(ops["bounds"]), np.asarray(bounds).astype("i4"))
+        np.testing.assert_array_equal(_np(ops["k0"]), np.asarray(k0).astype("i4"))
+        np.testing.assert_array_equal(_np(ops["tvg_shift"]), np.asarray(shift_eff))
+        b_np, _ = tp.closed_bounds_k0_np(dr[:, 0], shift[:, 0],
+                                         r_edges[None, :] - r0[:, :1], R)
+        np.testing.assert_array_equal(b_np, np.asarray(bounds))
+
+    @pytest.mark.parametrize("uniform", [True, False], ids=["K1", "K2"])
+    def test_kernel_model_f32(self, uniform):
+        """The kernels' decomposition (slabs, per-sample sums, NaN adds 0,
+        closed counts) equals the float32 twins."""
+        args = _as_db(_varying_inputs(seed=6, vary_dr=not uniform)[:-1])
+        args[0][1, 9, 77] = np.nan
+        args[5] = (~np.isnan(args[0])).sum(axis=2).astype("i4")
         ops = tp.kernel_inputs_from_numpy(*args, uniform=uniform, device="cpu")
         twin = (wp.window_partials_uniform_plain if uniform else wp.window_partials_plain)(
             **{k: v for k, v in ops.items() if k != "plan"})
