@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive echopype_torch's survey, Sv-grid, masking, EK80 and AZFP paths once on a CUDA card.
+"""Drive echopype_torch's survey, Sv-grid, masking, EK80, AZFP and cruise paths once on a CUDA card.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA card (H100), nvcc and PyTorch built for CUDA:
@@ -122,11 +122,31 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    channels) on A's first 2,000 pings, equal on the card to the same
    parameters given explicitly and within 1e-4 dB of the CPU; ``open_raw``
    of one tests/test_ad2cp.py file;
-13. print the matched filter's and the masks' device programs (plain
+13. the multi-file cruise (``cruise``): ``run_survey_mvbs_from_raw`` over
+   the survey files A, B, C with ``workers=3`` (a spawned pool decodes one
+   file a process and never touches the card), bit-identical to
+   ``workers=0, prefetch=False`` on the card with the same K1 / K2 launches,
+   and within 1e-4 dB of the default prefetch streamer; walls and pings/s of
+   the three with ``os.cpu_count()`` and the card's name and power limit;
+   the same for the three AZFP files (K2-f32 a chunk); then three EK60
+   files of 2,000 pings at the survey's width through ``open_raw`` ->
+   ``combine_echodata`` -> one reversed ping time (as
+   tests/test_metrics_qc.py:158-168) -> ``to_zarr`` ->
+   ``qc.orchestrate_reverse_time_check(zarr_store=)`` -> ``open_converted``
+   (the store equals the repaired tree bit for bit), ``compute_Sv`` and
+   ``compute_MVBS`` on the card against the CPU (1e-4 dB, identical NaN
+   masks and coordinates) and the five ``metrics`` on the first 2,000 pings
+   of the card's and the CPU's Sv (rtol 1e-4, identical NaN masks); last,
+   one survey of file A inside ``utils.profiling.trace``: the Chrome trace
+   is written and holds every host-side K1 launch of the survey, and its
+   device kernel events are counted by name with the card's busy share of
+   the traced window (none found is printed, not a failure);
+14. print the matched filter's and the masks' device programs (plain
    PyTorch, not a Pallas kernel's port) with launches and timings, then the
    kernel table as one JSON line
-   (launches on the main paths, the survey's and the ek80 power leg's for
-   K1 / K2, the AZFP survey's for their float32 instances; error, kernel /
+   (launches on the main paths, the survey's, the ek80 power leg's and the
+   cruise phase's for K1 / K2, the AZFP survey's and the cruise phase's
+   for their float32 instances; error, kernel /
    plain twin ms, bound ms and what sets it; no
    single PyTorch call computes any of the four functions, so
    ``library_ms`` is null), then the result line ``{"ok": true, "device":
@@ -207,6 +227,19 @@ AZFP_FD_EQ = "200kHz - 38kHz > 3.0dB"
 COMPOSED_RTOL, COMPOSED_ATOL_DB = 2e-3, 5e-2  # tests/test_survey.py:284
 AZFP6_BINS = 1000
 ECS_PINGS = 2000  # the head of file A calibrated with an ECS file
+# the cruise phase: the survey files decoded by a pool of one process a
+# file; a three-file cruise at the survey's width, combined, repaired (one
+# reversed ping time in the second file) and stored; the metrics on the
+# first file's pings of the card's and the CPU's Sv (host float64 numpy,
+# ~7 s per 1,000 pings on a CPU core: the whole cruise would take minutes)
+CRUISE_WORKERS = 3
+CRUISE_PINGS, CRUISE_FILES = 2000, 3
+METRICS = ("abundance", "center_of_mass", "dispersion", "evenness", "aggregation")
+METRICS_PINGS = 2000
+# the card's Sv within 1e-4 dB of the CPU's is within 2.3e-5 relative in
+# linear sv; the metrics' sums over 4,000 samples and their ratios stay
+# inside this
+METRICS_RTOL = 1e-4
 # H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.  The latter counts an FMA
 # as two: the card issues half as many instructions, 128 lanes a clock per
@@ -1748,7 +1781,218 @@ def azfp_phase(file_a):
         phase_s=round(time.perf_counter() - t_phase, 1))
     if failed:
         raise AssertionError(f"azfp phase: {failed}")
-    return survey_launches
+    return survey_launches, files, xml
+
+
+def write_cruise_files():
+    """Three consecutive EK60 files at the survey's width (5 channels x
+    4,000 samples), CRUISE_PINGS pings each."""
+    from synth_ek60 import write_ek60_raw
+
+    t0 = np.datetime64("2020-02-01T00:00:00", "ns")
+    files = []
+    for i in range(CRUISE_FILES):
+        path = DATA_DIR / f"CRUISE{i}-D20200201-T{i:02d}0000.raw"
+        write_ek60_raw(path, n_pings=CRUISE_PINGS, n_samples=R, channels=CHANNELS,
+                       frequencies=FREQS, t0=t0 + np.timedelta64(i * CRUISE_PINGS, "s"),
+                       seed=40 + i, with_angle=False)
+        files.append(str(path))
+    return files
+
+
+def _same_tree(got, want):
+    """Groups of two EchoData trees with the same variables, coords and attr
+    names, every array equal bit for bit (NaN where NaN); the differing
+    names, empty when equal."""
+    bad = []
+    for g in want.group_paths:
+        a, b = got[g], want[g]
+        if sorted(a.data_vars) != sorted(b.data_vars) or sorted(a.coords) != sorted(b.coords):
+            bad.append(f"{g}: names")
+            continue
+        for n in [*b.coords, *b.data_vars]:
+            x = np.asarray((a.coords[n] if n in a.coords else a[n]).values)
+            y = np.asarray((b.coords[n] if n in b.coords else b[n]).values)
+            if x.dtype.kind in "OUS" or y.dtype.kind in "OUS":
+                ok = x.shape == y.shape and [str(v) for v in x.ravel()] == [
+                    str(v) for v in y.ravel()]
+            else:
+                ok = x.dtype == y.dtype and np.array_equal(x, y, equal_nan=x.dtype.kind in "fc")
+            if not ok:
+                bad.append(f"{g}:{n}")
+        if sorted(a.attrs) != sorted(b.attrs):
+            bad.append(f"{g}: attrs")
+    if sorted(got.group_paths) != sorted(want.group_paths):
+        bad.append("group paths")
+    return bad
+
+
+def cruise_phase(files, azfp_files, azfp_xml, smi):
+    """The multi-file cruise path: the raw survey's ``workers=`` decode pool
+    (EK60 and AZFP) against the in-process paths; open_raw ->
+    combine_echodata -> to_zarr -> qc.orchestrate_reverse_time_check
+    (zarr_store=) -> open_converted -> compute_Sv -> compute_MVBS and the
+    metrics, card vs CPU; and one survey traced with
+    utils.profiling.trace."""
+    import collections
+    import os
+
+    import echopype_torch as et
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.utils.profiling import StageTimer, trace
+
+    checks, walls, launches = {}, {}, collections.Counter()
+    t_phase = time.perf_counter()
+
+    def survey(tag, raws, **kw):
+        """One survey on the card, timed, its launches read just after."""
+        wp.reset_launches()
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        out = et.run_survey_mvbs_from_raw(raws, timer=timer, **kw)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        got = {k: v for k, v in wp.LAUNCHES.items() if v}
+        launches.update(got)
+        return out, got, timer.report(log=False)
+
+    # (a) the workers= pool on the survey files, then on the AZFP files
+    kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", chunk_pings=P)
+    chunks = [-(-n // P) for n in E2E_PINGS]
+    want = {"window_partials_uniform": chunks[0] + chunks[1], "window_partials": chunks[2]}
+    runs, got_l, stages = {}, {}, {}
+    for tag, opts in (("pool", dict(workers=CRUISE_WORKERS)),
+                      ("eager", dict(workers=0, prefetch=False)), ("prefetch", {})):
+        runs[tag], got_l[tag], stages[tag] = survey(tag, files, **opts, **kw)
+    checks["pool == workers=0 (bit)"] = _same_run(runs["pool"], runs["eager"])
+    checks["pool launches"] = got_l["pool"] == got_l["eager"] == got_l["prefetch"] == want
+    pre_db, pre_nan = _max_db(runs["prefetch"]["Sv"].values, runs["pool"]["Sv"].values)
+    checks["prefetch vs pool"] = pre_nan and pre_db <= MVBS_ATOL_DB and _same_coords(
+        runs["prefetch"], runs["pool"], ("channel", "ping_time", "echo_range"))
+    n_pings = sum(E2E_PINGS)
+    say("cruise_workers", card=repr(smi), cpu_count=os.cpu_count(), workers=CRUISE_WORKERS,
+        pings=n_pings, wall_s=json.dumps({t: round(walls[t], 3) for t in runs}),
+        pings_per_s=json.dumps({t: round(n_pings / walls[t], 1) for t in runs}),
+        bit_identical=checks["pool == workers=0 (bit)"], prefetch_vs_pool_dB=pre_db,
+        launches=json.dumps(got_l["pool"]), stages=json.dumps(
+            {t: {k: v["total_s"] for k, v in stages[t].items()} for t in runs}))
+    del runs
+
+    akw = dict(sonar_model="AZFP", xml_path=azfp_xml, env_params=AZFP_ENV, **AZFP_GRID)
+    azfp_chunks = AZFP_FILES * -(-AZFP_PINGS // AZFP_GRID["chunk_pings"])
+    runs = {}
+    for tag, workers in (("azfp_pool", CRUISE_WORKERS), ("azfp_eager", 0)):
+        runs[tag], got_l[tag], _ = survey(tag, azfp_files, workers=workers, **akw)
+    checks["azfp pool == workers=0 (bit)"] = _same_run(runs["azfp_pool"], runs["azfp_eager"])
+    checks["azfp pool launches"] = got_l["azfp_pool"] == got_l["azfp_eager"] == {
+        "window_partials_f32": azfp_chunks}
+    n_az = AZFP_FILES * AZFP_PINGS
+    say("cruise_workers_azfp", card=repr(smi), cpu_count=os.cpu_count(), pings=n_az,
+        wall_s=json.dumps({t: round(walls[t], 3) for t in runs}),
+        pings_per_s=json.dumps({t: round(n_az / walls[t], 1) for t in runs}),
+        bit_identical=checks["azfp pool == workers=0 (bit)"],
+        launches=json.dumps(got_l["azfp_pool"]))
+    del runs
+
+    # (b) the cruise: combine, one reversed ping, store, repair, reopen
+    t0 = time.perf_counter()
+    cruise = write_cruise_files()
+    walls["write"] = time.perf_counter() - t0
+
+    def timed(tag, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        return out
+
+    comb = timed("combine", lambda: et.combine_echodata(
+        [et.open_raw(f, sonar_model="EK60") for f in cruise]))
+    beam = comb["Sonar/Beam_group1"]
+    pt = beam.coords["ping_time"].values.copy()
+    k = CRUISE_PINGS + CRUISE_PINGS // 2  # in the second file
+    pt[k] = pt[k - 1] - np.timedelta64(3, "s")
+    beam.coords["ping_time"] = et.xrlite.DataArray(pt, ("ping_time",), name="ping_time")
+    store = DATA_DIR / "cruise.zarr"
+    timed("to_zarr", lambda: comb.to_zarr(store))
+    timed("qc", lambda: et.qc.orchestrate_reverse_time_check(comb, zarr_store=str(store)))
+    back = timed("open_converted", lambda: et.open_converted(store))
+    bad = _same_tree(back, comb)
+    fixed = np.asarray(back["Sonar/Beam_group1"].coords["ping_time"].values)
+    checks["store == repaired tree"] = bad == []
+    old = back["Provenance"]["sonar_beam_group1_old_ping_time"].values
+    checks["reversal repaired"] = (
+        bool((np.diff(fixed) > np.timedelta64(0, "ns")).all())
+        and np.array_equal(fixed[:k], pt[:k]) and np.array_equal(np.diff(fixed)[k:],
+                                                                  np.diff(pt)[k:])
+        and np.array_equal(old, pt) and back["Provenance"].attrs["reversed_ping_times"] == 1)
+    sv = {d: timed(f"compute_Sv_{d}", lambda: et.calibrate.compute_Sv(back, device=d))
+          for d in ("cuda", "cpu")}
+    sv_db, sv_nan = _max_db(sv["cuda"]["Sv"].values, sv["cpu"]["Sv"].values)
+    checks["Sv cuda vs cpu"] = sv_nan and sv_db <= MVBS_ATOL_DB
+    grid = {d: timed(f"compute_MVBS_{d}", lambda: et.compute_MVBS(
+        sv[d], range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", device=d))
+        for d in ("cuda", "cpu")}
+    mv_db, mv_same, _ = _cuda_vs_cpu(grid)
+    n_x = CRUISE_FILES * CRUISE_PINGS // PING_BIN_S + 1
+    checks["MVBS cuda vs cpu"] = mv_same and mv_db <= MVBS_ATOL_DB and np.shape(
+        grid["cuda"]["Sv"].values)[:2] == (C, n_x)
+    rel = {}
+    for m in METRICS:
+        a, b = (np.asarray(timed(f"{m}_{d}", lambda: getattr(et.metrics, m)(
+            sv[d].isel(ping_time=slice(0, METRICS_PINGS)))).values, dtype="f8")
+            for d in ("cuda", "cpu"))
+        with np.errstate(invalid="ignore", divide="ignore"):
+            rel[m] = float(np.nanmax(np.abs(a - b) / np.abs(b)))
+        checks[f"{m} cuda vs cpu"] = (np.array_equal(np.isnan(a), np.isnan(b))
+                                      and np.isfinite(a).mean() > 0.9 and rel[m] <= METRICS_RTOL)
+    say("cruise_chain", files=CRUISE_FILES, pings=CRUISE_FILES * CRUISE_PINGS,
+        store_equals_tree=checks["store == repaired tree"], differing=json.dumps(bad),
+        repaired=checks["reversal repaired"], Sv_cuda_vs_cpu_dB=sv_db,
+        MVBS_cuda_vs_cpu_dB=mv_db, metrics_pings=METRICS_PINGS,
+        metrics_max_rel=json.dumps(rel), metrics_rtol=METRICS_RTOL,
+        seconds=json.dumps({t: round(v, 2) for t, v in walls.items()
+                            if not t.startswith(("pool", "eager", "prefetch", "azfp"))}))
+    del comb, back, sv, grid
+
+    # (c) one survey of file A traced on the card
+    log_dir = DATA_DIR / "trace"
+    wp.reset_launches()
+    with trace(str(log_dir)) as prof:
+        t0 = time.perf_counter()
+        et.run_survey_mvbs_from_raw(files[:1], **kw)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    k1_traced = wp.LAUNCHES["window_partials_uniform"]
+    launches.update({k: v for k, v in wp.LAUNCHES.items() if v})
+    written = sorted(log_dir.glob("*.pt.trace.json"))
+    events = json.loads(written[0].read_text())["traceEvents"] if written else []
+    # the wrappers' record_function spans (host side; the trace mirrors each
+    # on the device's timeline as a gpu_user_annotation)
+    host_k1 = sum(e.get("name") == "ep_window_partials_uniform"
+                  and e.get("cat") == "user_annotation" for e in events)
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"]
+    by_name = collections.Counter(e["name"][:80] for e in kernels)
+    busy = sum(float(e.get("dur", 0)) for e in kernels) / window_us if kernels else None
+    copy_share = sum(float(e.get("dur", 0)) for e in copies) / window_us if copies else None
+    checks["trace written"] = len(written) == 1
+    checks["trace holds the K1 launches"] = host_k1 == k1_traced == chunks[0]
+    say("cruise_trace", card=repr(smi), file=written[0].name if written else None,
+        MB=round(written[0].stat().st_size / 1e6, 2) if written else None,
+        events=len(events), categories=json.dumps(collections.Counter(
+            str(e.get("cat")) for e in events).most_common(8)),
+        host_k1_launches=host_k1, k1_launches=k1_traced, device_kernel_events=len(kernels),
+        kernels_by_name=json.dumps(by_name.most_common(12)), window_ms=round(window_us / 1e3, 1),
+        busy_share=busy, copy_share=copy_share, copies=len(copies),
+        profiler_ops=len(prof.key_averages()))
+
+    failed = [k for k, v in checks.items() if not v]
+    say("cruise_check", checks=len(checks), failed=json.dumps(failed),
+        phase_s=round(time.perf_counter() - t_phase, 1))
+    if failed:
+        raise AssertionError(f"cruise phase: {failed}")
+    return dict(launches)
 
 def write_files():
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1844,7 +2088,9 @@ def main():
             GB=round(sum(Path(f).stat().st_size for f in files80) / 1e9, 3))
         ek80_launches, matched_filter = ek80_phase(files80)
         torch.cuda.empty_cache()
-        azfp_launches = azfp_phase(files[0])
+        azfp_launches, azfp_files, azfp_xml = azfp_phase(files[0])
+        torch.cuda.empty_cache()
+        cruise_launches = cruise_phase(files, azfp_files, azfp_xml, smi)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -1882,10 +2128,12 @@ def main():
         {"name": "window_partials_uniform", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:174",
          "launches": launches["window_partials_uniform"]
-         + ek80_launches["window_partials_uniform"], **k1},
+         + ek80_launches["window_partials_uniform"]
+         + cruise_launches.get("window_partials_uniform", 0), **k1},
         {"name": "window_partials", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:219",
-         "launches": launches["window_partials"] + ek80_launches["window_partials"], **k2},
+         "launches": launches["window_partials"] + ek80_launches["window_partials"]
+         + cruise_launches.get("window_partials", 0), **k2},
         {"name": "sv_bin_partials", "route": "cuda", "source": src_fused,
          "replaces": "echopype_tpu/ops/pallas_pipeline.py:30",
          "launches": sv_launches["sv_bin_partials"], **k3},
@@ -1900,7 +2148,8 @@ def main():
          "launches": azfp_launches["window_partials_uniform_f32"], **k1_f32},
         {"name": "window_partials_f32", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:219",
-         "launches": azfp_launches["window_partials_f32"], **k2_f32},
+         "launches": azfp_launches["window_partials_f32"]
+         + cruise_launches.get("window_partials_f32", 0), **k2_f32},
     ]
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

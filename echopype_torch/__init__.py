@@ -16,18 +16,26 @@ the fused survey-processing step ``parallel.survey_pipeline_step``
 ``add_splitbeam_angle``, the Sv-store survey streamers
 ``run_survey_mvbs`` / ``run_survey_nasc``, and ``clean`` / ``mask`` (noise
 masks on the device programs of ``ops/windows.py``, frequency
-differencing; the streamers' ``freq_diff=`` / ``noise_masks=``).  The host-only layer (``convert``,
-``echodata``, ``xrlite``, ``storage``, ``native``, calibration parameter
-resolution, ``utils``) is the port's own copy of the reference package's,
-in the same layout; the port imports nothing of ``echopype_tpu``.  Entry
-points take ``device=`` ("cuda" by default; "cpu" runs the plain PyTorch
-twins of the kernels).
+differencing; the streamers' ``freq_diff=`` / ``noise_masks=``).  A
+multi-file cruise: ``open_raw`` per file (or the raw survey's
+``workers=`` process pool, which decodes one file a process) ->
+``combine_echodata`` -> ``qc.orchestrate_reverse_time_check`` (repairs
+reversed ping times, in memory or in a zarr store) -> ``compute_Sv`` ->
+the grids -> ``metrics`` (abundance, center of mass, dispersion,
+evenness, aggregation); ``utils.profiling.trace`` records a
+``torch.profiler`` window.  The host-only layer (``convert``,
+``echodata``, ``xrlite`` with its datatree stores and xarray facade,
+``storage``, ``native``, calibration parameter resolution, ``qc``,
+``metrics``, ``colormap``, ``utils``) is the port's own copy of the
+reference package's, in the same layout; the port imports nothing of
+``echopype_tpu``.  Entry points take ``device=`` ("cuda" by default;
+"cpu" runs the plain PyTorch twins of the kernels).
 """
 
-from . import calibrate, clean, commongrid, consolidate, mask  # noqa: F401
 from .commongrid import compute_MVBS, compute_MVBS_index_binning, compute_NASC  # noqa: F401
 from .convert.api import open_raw  # noqa: F401
 from .echodata.api import open_converted  # noqa: F401
+from .echodata.combine import combine_echodata  # noqa: F401
 from .echodata.echodata import EchoData  # noqa: F401
 from .parallel import survey_pipeline_step  # noqa: F401
 from .parallel.survey import (  # noqa: F401
@@ -35,14 +43,36 @@ from .parallel.survey import (  # noqa: F401
     run_survey_mvbs_from_raw,
     run_survey_nasc,
 )
+from .utils.log import verbose  # noqa: F401
+from .utils.prov import ECHOPYPE_TPU_VERSION as __version__  # noqa: F401
+
+from . import (  # noqa: F401, E402
+    calibrate,
+    clean,
+    colormap,
+    commongrid,
+    consolidate,
+    mask,
+    metrics,
+    qc,
+    utils,
+    xrlite,
+)
 
 __all__ = [
     "EchoData",
     "calibrate",
     "clean",
+    "colormap",
+    "combine_echodata",
     "commongrid",
     "consolidate",
     "mask",
+    "metrics",
+    "qc",
+    "utils",
+    "verbose",
+    "xrlite",
     "compute_MVBS",
     "compute_MVBS_index_binning",
     "compute_NASC",

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import launch_span
 from .binning import banded_x_reduce
 
 __all__ = [
@@ -182,7 +183,7 @@ def _launch(entry, name, power, dr, tvg_shift, absorption, offset, bounds, with_
     n_ptr = 9 if with_sv else 8
     fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     outs = ([sv] if with_sv else []) + [s1, n1]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_span(entry):
         status = fn(
             *[t.data_ptr() for t in (power, dr, tvg_shift, absorption, offset, bounds, *outs)],
             C, P, R, n_r, torch.cuda.current_stream(dev).cuda_stream,

@@ -41,6 +41,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.profiling import launch_span
 from .binning import banded_x_reduce
 
 __all__ = [
@@ -212,7 +213,7 @@ def _launch(entry, name, power, operands, W, n_r, with_counts):
     fn.argtypes = [ctypes.c_void_p] * (len(operands) + 4) + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     ptrs = [t.data_ptr() for t, _, _ in operands.values()]
     ptrs += [None if t is None else t.data_ptr() for t in (*scratch, sums, counts)]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), launch_span(entry):
         status = fn(*ptrs, C, P, R, W, n_r, n_slabs, torch.cuda.current_stream(dev).cuda_stream)
     if status != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {status}")

@@ -14,7 +14,8 @@ Counterpart of ``echopype_tpu/parallel/survey.py``.  Two families:
 * Raw files -> MVBS (:func:`run_survey_mvbs_from_raw`).  Power mode
   (EK60/ES70, and the power channels of EK80/ES80/EA640): the single-pass
   streamer with a decode-ahead thread (``prefetch=True``, local EK60/ES70
-  files) or the eager two-pass path.  Per file, calibration parameters
+  files) or the eager two-pass path, whose decode can run in a spawned
+  process pool (``workers=``).  Per file, calibration parameters
   resolve on the host; each ping chunk ships as int16 to the device, where
   one fused kernel (K1 for per-channel uniform ``dr``, K2 otherwise)
   returns its [C, window, n_r] bin partials; Sv is never materialized.
@@ -138,7 +139,7 @@ def _global_ping_bins(pt_i8, ping_edges_i8, n_x):
 _EK60_MODELS = ("EK60", "ES70")
 _EK80_MODELS = ("EK80", "ES80", "EA640")
 _AZFP_MODELS = ("AZFP", "AZFP6")
-_UNPORTED_ITEMS = {"mesh": 10, "workers": 9}
+_UNPORTED_ITEMS = {"mesh": 10}
 
 
 def _refuse_unported(**options):
@@ -493,8 +494,16 @@ def run_survey_mvbs_from_raw(
     mode) that :func:`run_survey_mvbs` masks and bins, one file in memory
     at a time.
 
-    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1):
-    ``workers`` (item 9) and ``mesh`` (10).
+    ``workers=N`` (N > 0, two files or more) decodes the files in N spawned
+    processes, one file a task, as the JAX package does: the prefetch
+    streamer is then off and the eager path consumes the decoded inputs in
+    file order, so the bins equal ``workers=0, prefetch=False`` bit for bit.
+    The workers resolve parameters on the CPU and never touch the card; a
+    worker that fails makes the survey raise.  The ``noise_masks`` and
+    complex routes ignore ``workers``, as in the JAX package.
+
+    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): ``mesh``
+    (item 10).
 
     Returns an MVBS Dataset on the global (ping_time bin, range bin) grid;
     ``attrs["device"]`` names the device and ``attrs["stage_timing"]`` holds
@@ -505,7 +514,7 @@ def run_survey_mvbs_from_raw(
             "run_survey_mvbs_from_raw supports EK60/ES70/EK80/ES80/EA640/AZFP/AZFP6 "
             f"power mode, not {sonar_model!r}"
         )
-    _refuse_unported(workers=workers or None, mesh=mesh)
+    _refuse_unported(mesh=mesh)
     _check_noise_masks(noise_masks)
     complex_mode = encode_mode == "complex" or waveform_mode in ("BB", "FM")
     if sonar_model in _EK60_MODELS and complex_mode:
@@ -527,6 +536,24 @@ def run_survey_mvbs_from_raw(
             freq_diff,
         )
 
+    make_cal = _power_calibrator(sonar_model, env_params, cal_params, dev)
+    if prefetch and freq_diff is None and not workers and sonar_model in _EK60_MODELS:
+        try:
+            return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
+                                 chunk_pings, env_params, use_swap, xml_path, timer,
+                                 make_cal, dev)
+        except _ScanUnavailable as e:
+            logger.warning(f"extent scan unavailable ({e}); using eager two-pass ingest")
+    pool = None
+    if workers and len(raw_files) > 1:
+        pool = (workers, (sonar_model, use_swap, xml_path, env_params, cal_params))
+    return _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
+                      use_swap, xml_path, timer, make_cal, dev, freq_diff, pool)
+
+
+def _power_calibrator(sonar_model, env_params, cal_params, dev):
+    """The power-mode calibrator factory of ``sonar_model``: EchoData ->
+    calibrator whose ``_power_cal_inputs`` resolve the sonar equation."""
     if sonar_model in _EK60_MODELS:
         def make_cal(ed):
             return CalibrateEK60(ed, env_params, cal_params)
@@ -541,16 +568,7 @@ def run_survey_mvbs_from_raw(
         def make_cal(ed):
             return CalibrateEK80(ed, env_params, cal_params, waveform_mode="CW",
                                  encode_mode="power")
-
-    if prefetch and freq_diff is None and sonar_model in _EK60_MODELS:
-        try:
-            return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
-                                 chunk_pings, env_params, use_swap, xml_path, timer,
-                                 make_cal, dev)
-        except _ScanUnavailable as e:
-            logger.warning(f"extent scan unavailable ({e}); using eager two-pass ingest")
-    return _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-                      use_swap, xml_path, timer, make_cal, dev, freq_diff)
+    return make_cal
 
 
 def _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
@@ -600,14 +618,46 @@ def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
     return power, dr, shift, alpha, offset, r0, pt, chans, freq
 
 
+def _pool_decode_one(args):
+    """Worker-process body of ``workers=``: decode one raw file and resolve
+    its sonar-equation inputs, returning what :func:`_load_inputs` returns
+    (numpy arrays, lists, None).
+
+    ``args`` is ``(path, sonar_model, use_swap, xml_path, env_params,
+    cal_params)``.  The worker builds its own calibrator (the caller's
+    factory is a closure, which does not pickle) on the CPU: decode and
+    parameter resolution are host work, and a worker never touches the card.
+    """
+    path, sonar_model, use_swap, xml_path, env_params, cal_params = args
+    make_cal = _power_calibrator(sonar_model, env_params, cal_params, torch.device("cpu"))
+    out = _load_inputs(path, sonar_model, use_swap, xml_path, make_cal)
+    if torch.cuda.is_initialized():
+        raise RuntimeError(f"decoding {path} initialised CUDA in a worker process")
+    return out
+
+
+def _pool_load(raw_files, workers, args):
+    """Decode ``raw_files`` in a spawned pool of ``workers`` processes, one
+    file a task; results in file order.  A failed worker raises here."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(workers, len(raw_files)), mp_context=ctx) as ex:
+        return list(ex.map(_pool_decode_one, [(f, *args) for f in raw_files]))
+
+
 def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-               use_swap, xml_path, timer, make_cal, dev, freq_diff=None):
-    """Two-pass path: decode every file, fix the global grids, then stream
-    (every chunk through the masked step when ``freq_diff`` is set)."""
-    loaded = []
+               use_swap, xml_path, timer, make_cal, dev, freq_diff=None, pool=None):
+    """Two-pass path: decode every file (in a process pool when ``pool`` is
+    ``(workers, args)``), fix the global grids, then stream (every chunk
+    through the masked step when ``freq_diff`` is set)."""
     with timer.stage("ingest"):
-        for f in raw_files:
-            loaded.append(_load_inputs(f, sonar_model, use_swap, xml_path, make_cal))
+        if pool is not None:
+            loaded = _pool_load(raw_files, *pool)
+        else:
+            loaded = [_load_inputs(f, sonar_model, use_swap, xml_path, make_cal)
+                      for f in raw_files]
     chans = loaded[0][7]
     if any(item[7] != chans for item in loaded[1:]):
         raise ValueError("all raw files must share the same channels")

@@ -69,11 +69,12 @@ def encode_array_with(arr: np.ndarray, enc: dict):
     to the default encoding rules."""
     units = (enc or {}).get("units")
     if units and np.issubdtype(np.asarray(arr).dtype, np.datetime64):
-        # the reference package encodes these through xrlite/xarray_compat.py
-        raise NotImplementedError(
-            "CF time encodings in encoding= are not ported to echopype_torch yet "
-            "(ROADMAP Queue 1)"
-        )
+        from ..xrlite.xarray_compat import _make_coding_module
+
+        times = _make_coding_module().times
+        num, units, calendar = times.encode_cf_datetime(arr, units, enc.get("calendar"))
+        dtype = (enc or {}).get("dtype", "int64")
+        return np.asarray(num, dtype=dtype), {"units": units, "calendar": calendar}
     return encode_array(arr)
 
 

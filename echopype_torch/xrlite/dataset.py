@@ -628,15 +628,17 @@ class Dataset:
           (an Sv/MVBS store)
         - xarray-style group write: ``ds.to_zarr(store, group=..., mode=...,
           encoding=..., storage_options=...)`` — what the reference's save
-          chain and qc orchestration use (utils/io.py:80, qc/api.py:219); not
-          ported to echopype_torch yet, so it raises NotImplementedError
+          chain and qc orchestration use (utils/io.py:80, qc/api.py:219)
         """
         target = store_path if store_path is not None else store
         if group is not None or encoding is not None or mode in ("a", "r+"):
-            # the reference package writes these through xrlite/datatree.py
-            raise NotImplementedError(
-                "xarray-style group/encoding/append zarr writes are not ported to "
-                "echopype_torch yet (ROADMAP Queue 1)"
+            from .datatree import dataset_to_zarr
+
+            return dataset_to_zarr(
+                self, target, mode=mode, group=group, encoding=encoding,
+                consolidated=consolidated, storage_options=storage_options,
+                compress=compress, zarr_format=zarr_format,
+                shard_spec=shard_spec,
             )
         from .. import storage
 

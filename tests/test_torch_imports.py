@@ -12,13 +12,21 @@ streamers with ``freq_diff`` and ``noise_masks``, and the other instruments:
 AZFP ``open_raw`` -> ``compute_Sv`` and the AZFP raw survey (plain,
 ``freq_diff``), AD2CP ``open_raw`` and ``compute_Sv(ecs_file=)`` on EK60,
 on the CPU (the AD2CP and ECS files come from test helpers that import the
-JAX package, so this process writes them first); none of the four may be
-loaded afterwards.
+JAX package, so this process writes them first), and the multi-file cruise:
+three files -> ``combine_echodata`` -> a reversed ping -> ``to_zarr`` ->
+``qc.orchestrate_reverse_time_check(zarr_store=)`` -> ``open_converted`` ->
+``compute_Sv`` -> the five ``metrics``, and the raw survey with
+``workers=2``; none of the four may be loaded afterwards.  The refusing
+finder is installed by a ``sitecustomize`` on the subprocess's PYTHONPATH,
+so the survey's spawned decode workers start with it too; each process that
+loads it logs its pid, and the survey must have run in two more processes
+than the script's own.
 An AST scan holds the package's sources and ``chip_smoke.py`` to the same
 rule, including imports inside functions.
 """
 
 import ast
+import os
 import subprocess
 import sys
 import textwrap
@@ -30,9 +38,10 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 
-_SCRIPT = textwrap.dedent(
+_FENCE = textwrap.dedent(
     """
     import importlib.abc
+    import os
     import sys
 
     BLOCKED = ("jax", "jaxlib", "pandas", "echopype_tpu")
@@ -44,6 +53,16 @@ _SCRIPT = textwrap.dedent(
             return None
 
     sys.meta_path.insert(0, Refuse())
+    with open(os.environ["FENCE_PID_LOG"], "a") as log:
+        log.write(f"{os.getpid()}\\n")
+    """
+)
+
+_SCRIPT = textwrap.dedent(
+    """
+    import sys
+
+    BLOCKED = ("jax", "jaxlib", "pandas", "echopype_tpu")
     sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
 
     import numpy as np
@@ -119,6 +138,28 @@ _SCRIPT = textwrap.dedent(
     assert "Sonar/Beam_group1" in ad.group_paths
     sv_ecs = et.calibrate.compute_Sv(ed, ecs_file=sys.argv[4], device="cpu")
     np.testing.assert_allclose(np.asarray(sv_ecs["sound_speed"].values), 1473.0)
+    cruise = [path]
+    for i in (1, 2):
+        cruise.append(path.replace("T000000", f"T0{i}0000"))
+        write_ek60_raw(cruise[-1], n_pings=30, n_samples=200, with_angle=False, seed=i,
+                       t0=np.datetime64("2020-01-01T00:00:00", "ns") + np.timedelta64(3600 * i, "s"))
+    comb = et.combine_echodata([et.open_raw(p, sonar_model="EK60") for p in cruise])
+    beam = comb["Sonar/Beam_group1"]
+    pt = beam.coords["ping_time"].values.copy()
+    pt[40] = pt[39] - np.timedelta64(3, "s")
+    beam.coords["ping_time"] = et.xrlite.DataArray(pt, ("ping_time",), name="ping_time")
+    store = path.replace(".raw", "-cruise.zarr")
+    comb.to_zarr(store)
+    et.qc.orchestrate_reverse_time_check(comb, zarr_store=store)
+    back = et.open_converted(store)
+    assert not et.qc.exist_reversed_time(back["Sonar/Beam_group1"], "ping_time")
+    assert back["Provenance"].attrs["reversed_ping_times"] == 1
+    sv_c = et.calibrate.compute_Sv(back, device="cpu")
+    for m in ("abundance", "center_of_mass", "dispersion", "evenness", "aggregation"):
+        assert np.isfinite(getattr(et.metrics, m)(sv_c).values).any(), m
+    pooled = et.run_survey_mvbs_from_raw(cruise, workers=2, range_bin="5m", ping_time_bin="10s",
+                                         chunk_pings=16, device="cpu")
+    assert np.isfinite(pooled["Sv"].values).any()
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     print("LOADED", loaded)
     """
@@ -132,13 +173,20 @@ def test_port_runs_without_jax_or_pandas(tmp_path):
     ad2cp, ecs = tmp_path / "m.ad2cp", tmp_path / "cal.ecs"
     write_ad2cp(ad2cp, with_bottom_track=True, with_echosounder_raw=True)
     ecs.write_text(ECS_CONTENT)
+    fence, pids = tmp_path / "fence", tmp_path / "fence_pids.txt"
+    fence.mkdir()
+    (fence / "sitecustomize.py").write_text(_FENCE)
+    env = dict(os.environ, FENCE_PID_LOG=str(pids),
+               PYTHONPATH=os.pathsep.join(filter(None, [str(fence),
+                                                        os.environ.get("PYTHONPATH")])))
     res = subprocess.run(
         [sys.executable, "-c", _SCRIPT, str(REPO), str(tmp_path / "g-D20200101-T000000.raw"),
          str(ad2cp), str(ecs)],
-        capture_output=True, text=True, timeout=300, cwd=tmp_path,
+        capture_output=True, text=True, timeout=300, cwd=tmp_path, env=env,
     )
     assert res.returncode == 0, res.stderr[-4000:]
     assert "LOADED []" in res.stdout
+    assert len(set(pids.read_text().split())) >= 3  # the script and two decode workers
 
 
 REFUSED_EVERYWHERE = ("jax", "jaxlib", "echopype_tpu")
@@ -175,3 +223,12 @@ def test_import_scan_sees_nested_imports(tmp_path):
                    "    import jax.numpy\n")
     assert sorted(_imports(src)) == [("echopype_tpu", 4, False), ("jax", 5, False),
                                      ("pandas", 1, True)]
+
+
+def test_scan_covers_the_cruise_modules():
+    """The scan's file list reaches the modules the cruise path added."""
+    scanned = {p.relative_to(REPO / "echopype_torch").as_posix()
+               for p in (REPO / "echopype_torch").rglob("*.py")}
+    assert {"echodata/combine.py", "qc/api.py", "metrics/summary_statistics.py",
+            "colormap/cm.py", "xrlite/datatree.py", "xrlite/xarray_compat.py",
+            "utils/profiling.py"} <= scanned

@@ -665,3 +665,43 @@ def test_exact_pooling_card_equals_cpu(cuda):
     want = tw.pool_sv_nanmean_exact_device(sv, depth, 10.0, 25, 50.0, device="cpu")
     np.testing.assert_array_equal(got, want)
     assert np.isfinite(got).any()
+
+
+@pytest.mark.parametrize("model", ["EK60", "AZFP"])
+def test_workers_pool_on_card_bit_identical(cuda, tmp_path, model):
+    """``workers=2`` decodes in spawned processes that never touch the card;
+    the survey then equals ``workers=0, prefetch=False`` on the card bit for
+    bit, with the same launches: K1 for the uniform-dr EK60 files' chunks,
+    K2 for the file whose sound speed varies by ping, K2-f32 for AZFP."""
+    import echopype_torch as et
+    from synth_azfp import write_azfp_raw, write_azfp_xml
+    from synth_ek60 import write_ek60_raw
+
+    t0 = np.datetime64("2020-01-01T00:00:00", "ns")
+    files, kw = [], dict(range_bin="10m", ping_time_bin="10s", chunk_pings=16)
+    for i, n in enumerate((20, 23, 26)):
+        if model == "EK60":
+            p = tmp_path / f"PL{i}-D20200101-T00{i}000.raw"
+            write_ek60_raw(p, n_pings=n, n_samples=80, seed=i, with_angle=False,
+                           t0=t0 + np.timedelta64(i * 30, "s"), jitter_raw0=i == 2)
+        else:
+            p = tmp_path / f"2103151{i}.01A"
+            write_azfp_raw(p, n_pings=n, seed=i, minute=i)
+        files.append(str(p))
+    if model == "AZFP":
+        write_azfp_xml(tmp_path / "instrument.XML")
+        kw.update(sonar_model="AZFP", xml_path=str(tmp_path / "instrument.XML"),
+                  env_params={"salinity": 32.0, "pressure": 60.0}, range_bin="1.5m")
+    chunks = [-(-n // 16) for n in (20, 23, 26)]
+    want = ({"window_partials_uniform": chunks[0] + chunks[1], "window_partials": chunks[2]}
+            if model == "EK60" else {"window_partials_f32": sum(chunks)})
+    runs = []
+    for workers in (2, 0):
+        wp.reset_launches()
+        runs.append(et.run_survey_mvbs_from_raw(files, workers=workers, prefetch=False,
+                                                device=cuda, **kw))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in wp.LAUNCHES.items() if v} == want
+    g, w = (np.asarray(r["Sv"].values) for r in runs)
+    np.testing.assert_array_equal(g, w)
+    assert np.isfinite(g).any()

@@ -175,8 +175,8 @@ def test_options_still_refused(files):
     kw = dict(sonar_model="AZFP", xml_path=files["xml"], env_params=ENV, device="cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         et.run_survey_mvbs_from_raw([files["two_ch_0"]], mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        et.run_survey_mvbs_from_raw([files["two_ch_0"]], workers=2, **kw)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        et.run_survey_mvbs_from_raw([files["two_ch_0"]], workers=2, mesh=object(), **kw)
 
 
 def test_missing_salinity_raises(files):
