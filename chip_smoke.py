@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive echopype_torch's survey, Sv-grid, masking, EK80, AZFP and cruise paths once on a CUDA card.
+"""Drive echopype_torch's survey, Sv-grid, masking, EK80, AZFP, cruise and mesh paths once on a CUDA card.
 
 Run from the root of a checkout, with no arguments, on a machine with one
 NVIDIA card (H100), nvcc and PyTorch built for CUDA:
@@ -123,12 +123,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    parameters given explicitly and within 1e-4 dB of the CPU; ``open_raw``
    of one tests/test_ad2cp.py file;
 13. the multi-file cruise (``cruise``): ``run_survey_mvbs_from_raw`` over
-   the survey files A, B, C with ``workers=3`` (a spawned pool decodes one
-   file a process and never touches the card), bit-identical to
-   ``workers=0, prefetch=False`` on the card with the same K1 / K2 launches,
-   and within 1e-4 dB of the default prefetch streamer; walls and pings/s of
-   the three with ``os.cpu_count()`` and the card's name and power limit;
-   the same for the three AZFP files (K2-f32 a chunk); then three EK60
+   the survey files A, B, C with ``workers=0, prefetch=False`` and with the
+   default prefetch streamer (the same K1 / K2 launches, within 1e-4 dB),
+   walls and pings/s with ``os.cpu_count()`` and the card's name and power
+   limit; the three AZFP files with ``workers=3`` (a spawned pool decodes
+   one file a process and never touches the card), bit-identical to
+   ``workers=0`` with the same K2-f32 launches; then three EK60
    files of 2,000 pings at the survey's width through ``open_raw`` ->
    ``combine_echodata`` -> one reversed ping time (as
    tests/test_metrics_qc.py:158-168) -> ``to_zarr`` ->
@@ -141,12 +141,33 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    is written and holds every host-side K1 launch of the survey, and its
    device kernel events are counted by name with the card's busy share of
    the traced window (none found is printed, not a failure);
-14. print the matched filter's and the masks' device programs (plain
+14. multi-device surveys (``mesh``), the port of
+   __graft_entry__.py::dryrun_multichip on ``make_mesh(4,
+   devices=["cuda:0"] * 4)``, four blocks of this one card (it prints
+   ``distinct_devices=1``): the EK60 survey over A, B, C on a (ping 4,
+   channel 1) mesh twice against the one-device survey above (MVBS within
+   1e-4 dB, NaN masks and coordinates identical, the reruns bit-identical,
+   K1 / K2 launches exactly 4 x the one-device launches, pings/s of each);
+   file A on the card's mesh against the same mesh on the CPU (1e-4 dB);
+   ``run_survey_mvbs`` over the dry run's Sv stores (6 channels, 40,000 +
+   40,000 + 21,056 pings, R = 64, chunks of 4,096) on (ping 2, channel 2)
+   against one device within 1e-6 dB, and ``run_survey_nasc`` over its NASC
+   files with an impulse-noise mask (rtol 1e-5, atol 1e-8); the EK80
+   broadband surveys (three two-FM-channel files, chunked; two-epoch CW and
+   BB files) against one device within 1e-4 dB, and ``device_fused=True``
+   with the mesh (a warning, then the chunked path, bit-identical to it);
+   at the kernel phase's shape, ``survey_pipeline_step`` with K3 and K4 once
+   per block and the 3-axis step (ping 2, channel 1, range 2) against the
+   one-device step, ``sharded_mvbs_step_closed`` and K1 / K2 through
+   ``sharded_mvbs_partials_closed`` (counts exact, sums rtol 1e-5), each
+   kernel's launches counted;
+15. print the matched filter's and the masks' device programs (plain
    PyTorch, not a Pallas kernel's port) with launches and timings, then the
    kernel table as one JSON line
-   (launches on the main paths, the survey's, the ek80 power leg's and the
-   cruise phase's for K1 / K2, the AZFP survey's and the cruise phase's
-   for their float32 instances; error, kernel /
+   (launches on the main paths, the survey's, the ek80 power leg's, the
+   cruise phase's and the mesh phase's for K1 / K2, the Sv-grid phase's
+   and the mesh phase's for K3 / K4, the AZFP survey's and the cruise
+   phase's for the float32 instances; error, kernel /
    plain twin ms, bound ms and what sets it; no
    single PyTorch call computes any of the four functions, so
    ``library_ms`` is null), then the result line ``{"ok": true, "device":
@@ -227,7 +248,7 @@ AZFP_FD_EQ = "200kHz - 38kHz > 3.0dB"
 COMPOSED_RTOL, COMPOSED_ATOL_DB = 2e-3, 5e-2  # tests/test_survey.py:284
 AZFP6_BINS = 1000
 ECS_PINGS = 2000  # the head of file A calibrated with an ECS file
-# the cruise phase: the survey files decoded by a pool of one process a
+# the cruise phase: the AZFP files decoded by a pool of one process a
 # file; a three-file cruise at the survey's width, combined, repaired (one
 # reversed ping time in the second file) and stored; the metrics on the
 # first file's pings of the card's and the CPU's Sv (host float64 numpy,
@@ -240,6 +261,15 @@ METRICS_PINGS = 2000
 # linear sv; the metrics' sums over 4,000 samples and their ratios stay
 # inside this
 METRICS_RTOL = 1e-4
+# the mesh phase: __graft_entry__.py::dryrun_multichip on four blocks of one
+# card; the Sv-store, NASC and broadband files are its own layouts
+MESH_SHARDS = 4
+MESH_SV_C, MESH_SV_R, MESH_SV_PINGS = 6, 64, (40_000, 40_000, 21_056)
+MESH_SV_DB = 1e-6  # __graft_entry__.py:199-207
+MESH_NASC_PINGS = (16_000, 8_192)
+MESH_NASC_RTOL, MESH_NASC_ATOL = 1e-5, 1e-8  # __graft_entry__.py:352-358
+MESH_BB_PINGS = (4096, 4096, 2048)
+MESH_EPOCH_PINGS = 512  # a filter epoch of the two-epoch files
 # H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.  The latter counts an FMA
 # as two: the card issues half as many instructions, 128 lanes a clock per
@@ -1856,25 +1886,25 @@ def cruise_phase(files, azfp_files, azfp_xml, smi):
         launches.update(got)
         return out, got, timer.report(log=False)
 
-    # (a) the workers= pool on the survey files, then on the AZFP files
+    # (a) the in-process paths on the survey files (the EK60 pool is held to
+    # them on the card by tests/test_torch_kernels_gpu.py::
+    # test_workers_pool_on_card_bit_identical), then the workers= pool on
+    # the AZFP files
     kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", chunk_pings=P)
     chunks = [-(-n // P) for n in E2E_PINGS]
     want = {"window_partials_uniform": chunks[0] + chunks[1], "window_partials": chunks[2]}
     runs, got_l, stages = {}, {}, {}
-    for tag, opts in (("pool", dict(workers=CRUISE_WORKERS)),
-                      ("eager", dict(workers=0, prefetch=False)), ("prefetch", {})):
+    for tag, opts in (("eager", dict(workers=0, prefetch=False)), ("prefetch", {})):
         runs[tag], got_l[tag], stages[tag] = survey(tag, files, **opts, **kw)
-    checks["pool == workers=0 (bit)"] = _same_run(runs["pool"], runs["eager"])
-    checks["pool launches"] = got_l["pool"] == got_l["eager"] == got_l["prefetch"] == want
-    pre_db, pre_nan = _max_db(runs["prefetch"]["Sv"].values, runs["pool"]["Sv"].values)
-    checks["prefetch vs pool"] = pre_nan and pre_db <= MVBS_ATOL_DB and _same_coords(
-        runs["prefetch"], runs["pool"], ("channel", "ping_time", "echo_range"))
+    checks["eager / prefetch launches"] = got_l["eager"] == got_l["prefetch"] == want
+    pre_db, pre_nan = _max_db(runs["prefetch"]["Sv"].values, runs["eager"]["Sv"].values)
+    checks["prefetch vs eager"] = pre_nan and pre_db <= MVBS_ATOL_DB and _same_coords(
+        runs["prefetch"], runs["eager"], ("channel", "ping_time", "echo_range"))
     n_pings = sum(E2E_PINGS)
-    say("cruise_workers", card=repr(smi), cpu_count=os.cpu_count(), workers=CRUISE_WORKERS,
-        pings=n_pings, wall_s=json.dumps({t: round(walls[t], 3) for t in runs}),
+    say("cruise_workers", card=repr(smi), cpu_count=os.cpu_count(), pings=n_pings,
+        wall_s=json.dumps({t: round(walls[t], 3) for t in runs}),
         pings_per_s=json.dumps({t: round(n_pings / walls[t], 1) for t in runs}),
-        bit_identical=checks["pool == workers=0 (bit)"], prefetch_vs_pool_dB=pre_db,
-        launches=json.dumps(got_l["pool"]), stages=json.dumps(
+        prefetch_vs_eager_dB=pre_db, launches=json.dumps(got_l["eager"]), stages=json.dumps(
             {t: {k: v["total_s"] for k, v in stages[t].items()} for t in runs}))
     del runs
 
@@ -1952,7 +1982,7 @@ def cruise_phase(files, azfp_files, azfp_xml, smi):
         MVBS_cuda_vs_cpu_dB=mv_db, metrics_pings=METRICS_PINGS,
         metrics_max_rel=json.dumps(rel), metrics_rtol=METRICS_RTOL,
         seconds=json.dumps({t: round(v, 2) for t, v in walls.items()
-                            if not t.startswith(("pool", "eager", "prefetch", "azfp"))}))
+                            if not t.startswith(("eager", "prefetch", "azfp"))}))
     del comb, back, sv, grid
 
     # (c) one survey of file A traced on the card
@@ -1993,6 +2023,279 @@ def cruise_phase(files, azfp_files, azfp_xml, smi):
     if failed:
         raise AssertionError(f"cruise phase: {failed}")
     return dict(launches)
+
+def mesh_sv_datasets(C=MESH_SV_C, ping_counts=MESH_SV_PINGS, R=MESH_SV_R, seed=3):
+    """__graft_entry__.py::_survey_sv_datasets as port Datasets: 4 Hz pings,
+    20 s bins straddling chunks, shards and files, an uneven last file."""
+    from echopype_torch.xrlite import Dataset
+
+    rng = np.random.default_rng(seed)
+    t0 = np.datetime64("2021-01-01T00:00:00", "ns")
+    dims = ("channel", "ping_time", "range_sample")
+    svs, off = [], 0
+    for n in ping_counts:
+        ds = Dataset(coords={
+            "channel": np.asarray([f"ch{k}" for k in range(C)], dtype=object),
+            "ping_time": t0 + ((off + np.arange(n)) * 250_000_000).astype("timedelta64[ns]"),
+            "range_sample": np.arange(R)})
+        off += n
+        ds["Sv"] = (dims, rng.normal(-70.0, 8.0, (C, n, R)).astype("f4"))
+        ds["echo_range"] = (dims, np.broadcast_to(np.arange(R, dtype="f4") * 0.5,
+                                                  (C, n, R)).copy())
+        svs.append(ds)
+    return svs
+
+
+def mesh_nasc_datasets():
+    """__graft_entry__.py::_dryrun_mesh_nasc's two files: depth = echo_range,
+    a straight track."""
+    svs = mesh_sv_datasets(C=2, ping_counts=MESH_NASC_PINGS, R=48, seed=11)
+    for i, ds in enumerate(svs):
+        n = ds.sizes["ping_time"]
+        base = 45.0 + (0 if i == 0 else (MESH_NASC_PINGS[0] + 1) * 3e-5)
+        ds["depth"] = (("channel", "ping_time", "range_sample"), ds["echo_range"].values.copy())
+        ds["latitude"] = (("ping_time",), base + np.arange(n) * 3e-5)
+        ds["longitude"] = (("ping_time",), np.full(n, -125.0))
+    return svs
+
+
+def write_mesh_bb_files():
+    """__graft_entry__.py::_dryrun_mesh_bb's files: three two-FM-channel
+    EK80 files (4,096 + 4,096 + 2,048 pings x 64 samples), and the two-epoch
+    CW and BB files of tests/test_ek80_epochs.py (512 pings an epoch)."""
+    import synth_ek80  # its namespace holds what the epoch writer uses
+
+    write_two_epoch_ek80, = test_helpers("test_ek80_epochs", ["write_two_epoch_ek80"],
+                                         **vars(synth_ek80))
+    t0 = np.datetime64("2021-02-01T00:00:00", "ns")
+    bb = []
+    for i, n in enumerate(MESH_BB_PINGS):
+        path = DATA_DIR / f"DRY{i}-D20210201-T000000.raw"
+        synth_ek80.write_ek80_raw(path, n_pings=n, n_samples=64, seed=i,
+                                  t0=t0 + np.timedelta64(i * 4200, "s"),
+                                  with_power_channel=False, extra_fm_channel=True)
+        bb.append(str(path))
+    epochs = {}
+    for wm in ("CW", "BB"):
+        path = DATA_DIR / f"DRYEP{wm}-D20210201-T000000.raw"
+        write_two_epoch_ek80(path, n_pings_per_epoch=MESH_EPOCH_PINGS, n_samples=64, waveform=wm)
+        epochs[wm] = str(path)
+    return bb, epochs
+
+
+def _db_close(a, b, atol, var="Sv"):
+    """(max |a - b|, NaN masks equal, coords equal) of two outputs."""
+    g, w = np.asarray(a[var].values, dtype="f8"), np.asarray(b[var].values, dtype="f8")
+    same = g.shape == w.shape and np.array_equal(np.isnan(g), np.isnan(w))
+    err = float(np.nanmax(np.abs(g - w))) if same and np.isfinite(g).any() else float("inf")
+    coords = same and all(np.array_equal(np.asarray(a.coords[k].values, dtype=str),
+                                         np.asarray(b.coords[k].values, dtype=str))
+                          for k in a.coords if k in b.coords)
+    return err, same and coords and err <= atol
+
+
+def mesh_phase(files, e2e, smi):
+    """Multi-device surveys on a mesh of ``MESH_SHARDS`` blocks of this one
+    card (``make_mesh(..., devices=["cuda:0"] * 4)``), the port of
+    __graft_entry__.py::dryrun_multichip: the EK60 raw survey, the Sv-store
+    surveys, the EK80 broadband surveys and the survey steps, each against
+    one device; the survey on the card against the same mesh on the CPU;
+    reruns bit-identical.  ``e2e`` is the one-device survey of A, B, C:
+    (MVBS, K1/K2 launches, wall)."""
+    import collections
+    import logging
+
+    import echopype_torch as et
+    from echopype_torch.ops import sv_bin_partials as sbp
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.parallel import make_mesh
+    from echopype_torch.parallel import pipeline as tp
+    from echopype_torch.parallel import survey as ts
+    from echopype_torch.utils.profiling import StageTimer
+
+    checks, walls, launches = {}, {}, collections.Counter()
+    t_phase = time.perf_counter()
+    mesh = make_mesh(MESH_SHARDS, devices=["cuda:0"] * MESH_SHARDS)
+    say("mesh_start", card=repr(smi), mesh=json.dumps(mesh.shape),
+        distinct_devices=len({str(d) for d in mesh.devices.flat}))
+
+    def survey(tag, fn, srcs, **kw):
+        """One survey, timed; its K1-K4 launches read just after."""
+        wp.reset_launches()
+        sbp.reset_launches()
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        out = fn(srcs, timer=timer, **kw)
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        got = {k: v for k, v in (*wp.LAUNCHES.items(), *sbp.LAUNCHES.items()) if v}
+        launches.update(got)
+        return out, got, timer.report(log=False)
+
+    # (a) the EK60 raw survey over A, B, C: (ping 4, channel 1) against one device
+    one, one_launches, one_wall = e2e
+    kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", chunk_pings=P)
+    runs, got_l, stages = {}, {}, {}
+    for tag in ("mesh", "mesh_rerun"):
+        runs[tag], got_l[tag], stages[tag] = survey(tag, et.run_survey_mvbs_from_raw, files,
+                                                    mesh=mesh, **kw)
+    err, checks["raw survey mesh vs one device"] = _db_close(runs["mesh"], one, MVBS_ATOL_DB)
+    checks["raw survey rerun (bit)"] = _same_run(runs["mesh"], runs["mesh_rerun"])
+    checks["K1/K2 launches 4 x one device"] = got_l["mesh"] == got_l["mesh_rerun"] == {
+        k: MESH_SHARDS * v for k, v in one_launches.items() if v}
+    n_pings = sum(E2E_PINGS)
+    say("mesh_raw_survey", card=repr(smi), pings=n_pings, max_abs_dB=err,
+        limit_dB=MVBS_ATOL_DB, same_nan_and_coords=checks["raw survey mesh vs one device"],
+        rerun_bit_identical=checks["raw survey rerun (bit)"],
+        launches_one=json.dumps(one_launches), launches_mesh=json.dumps(got_l["mesh"]),
+        wall_s=json.dumps({"one_device": round(one_wall, 3),
+                           **{t: round(walls[t], 3) for t in runs}}),
+        pings_per_s=json.dumps({"one_device": round(n_pings / one_wall, 1),
+                                **{t: round(n_pings / walls[t], 1) for t in runs}}),
+        stages=json.dumps({k: v["total_s"] for k, v in stages["mesh"].items()}))
+    del runs
+
+    # (b) file A on the card's mesh against the same mesh on the CPU
+    cpu_mesh = make_mesh(MESH_SHARDS, devices=["cpu"] * MESH_SHARDS)
+    card, _, _ = survey("A_mesh_cuda", et.run_survey_mvbs_from_raw, files[:1], mesh=mesh, **kw)
+    t0 = time.perf_counter()
+    cpu = et.run_survey_mvbs_from_raw(files[:1], mesh=cpu_mesh, **kw)
+    walls["A_mesh_cpu"] = time.perf_counter() - t0
+    err_cpu, checks["mesh cuda vs cpu"] = _db_close(card, cpu, MVBS_ATOL_DB)
+    say("mesh_cuda_vs_cpu", pings=E2E_PINGS[0], max_abs_dB=err_cpu, limit_dB=MVBS_ATOL_DB,
+        ok=checks["mesh cuda vs cpu"], wall_s=json.dumps(
+            {t: round(walls[t], 3) for t in ("A_mesh_cuda", "A_mesh_cpu")}))
+    del card, cpu
+
+    # (c) the Sv-store surveys on (ping 2, channel 2)
+    mesh22 = make_mesh(MESH_SHARDS, channel_axis=2, devices=["cuda:0"] * MESH_SHARDS)
+    svs = mesh_sv_datasets()
+    skw = dict(range_bin="5m", ping_time_bin="20s", chunk_pings=4096)
+    sv_one, _, _ = survey("sv_one", et.run_survey_mvbs, svs, **skw)
+    sv_mesh, _, _ = survey("sv_mesh", et.run_survey_mvbs, svs, mesh=mesh22, **skw)
+    sv_err, checks["Sv-store MVBS mesh vs one device"] = _db_close(sv_mesh, sv_one, MESH_SV_DB)
+    checks["Sv-store grid >= 1e5 pings"] = np.shape(sv_mesh["Sv"].values)[1] >= 1264
+    del svs, sv_one, sv_mesh
+    nsv = mesh_nasc_datasets()
+    nkw = dict(range_bin="5m", dist_bin="0.1nmi", chunk_pings=4096, noise_masks={
+        "impulse": dict(depth_bin="2m", num_side_pings=2, impulse_noise_threshold="10.0dB",
+                        range_var="depth")})
+    n_one, _, _ = survey("nasc_one", et.run_survey_nasc, nsv, **nkw)
+    n_mesh, _, _ = survey("nasc_mesh", et.run_survey_nasc, nsv, mesh=mesh22, **nkw)
+    g, w = (np.asarray(x["NASC"].values, dtype="f8") for x in (n_mesh, n_one))
+    nasc_same = np.array_equal(np.isnan(g), np.isnan(w)) and np.isfinite(g).any()
+    nasc_rel = float(np.nanmax(np.abs(g - w) / (MESH_NASC_ATOL + MESH_NASC_RTOL * np.abs(w))))
+    checks["Sv-store NASC mesh vs one device"] = nasc_same and nasc_rel <= 1.0
+    say("mesh_sv_surveys", mesh=json.dumps(mesh22.shape), pings=sum(MESH_SV_PINGS),
+        channels=MESH_SV_C, mvbs_max_abs_dB=sv_err, mvbs_limit_dB=MESH_SV_DB,
+        nasc_pings=sum(MESH_NASC_PINGS), nasc_error_over_limit=nasc_rel,
+        nasc_rtol=MESH_NASC_RTOL, nasc_atol=MESH_NASC_ATOL, wall_s=json.dumps(
+            {t: round(walls[t], 3) for t in ("sv_one", "sv_mesh", "nasc_one", "nasc_mesh")}))
+    del nsv, n_one, n_mesh
+
+    # (d) the EK80 broadband surveys: chunked, two filter epochs, device_fused
+    bb, epochs = write_mesh_bb_files()
+    bkw = dict(sonar_model="EK80", waveform_mode="BB", encode_mode="complex",
+               range_bin="0.5m", ping_time_bin="60s", chunk_pings=1024)
+    bb_err = {}
+    b_one, _, _ = survey("bb_one", et.run_survey_mvbs_from_raw, bb, **bkw)
+    b_mesh, _, _ = survey("bb_mesh", et.run_survey_mvbs_from_raw, bb, mesh=mesh, **bkw)
+    bb_err["chunked"], checks["BB chunked mesh vs one device"] = _db_close(b_mesh, b_one,
+                                                                           MVBS_ATOL_DB)
+    warned = []
+
+    class _Keep(logging.Handler):
+        def emit(self, record):
+            warned.append(record.getMessage())
+
+    keep = _Keep(logging.WARNING)
+    ts.logger.addHandler(keep)
+    try:
+        b_fused, _, _ = survey("bb_fused_mesh", et.run_survey_mvbs_from_raw, bb, mesh=mesh,
+                               device_fused=True, **bkw)
+    finally:
+        ts.logger.removeHandler(keep)
+    checks["device_fused mesh warns"] = any("no mesh path" in m for m in warned)
+    checks["device_fused mesh = chunked mesh (bit)"] = _same_run(b_fused, b_mesh)
+    del b_one, b_mesh, b_fused
+    for wm, path in epochs.items():
+        ekw = dict(bkw, waveform_mode=wm, range_bin="0.5m", ping_time_bin="30s",
+                   chunk_pings=128)
+        e_one, _, _ = survey(f"epochs_{wm}_one", et.run_survey_mvbs_from_raw, [path], **ekw)
+        e_mesh, _, _ = survey(f"epochs_{wm}_mesh", et.run_survey_mvbs_from_raw, [path],
+                              mesh=mesh, **ekw)
+        bb_err[f"epochs_{wm}"], checks[f"{wm} epochs mesh vs one device"] = _db_close(
+            e_mesh, e_one, MVBS_ATOL_DB)
+    say("mesh_ek80", files=len(bb), pings=sum(MESH_BB_PINGS), max_abs_dB=json.dumps(bb_err),
+        limit_dB=MVBS_ATOL_DB, fused_warned=checks["device_fused mesh warns"],
+        fused_equals_chunked=checks["device_fused mesh = chunked mesh (bit)"],
+        wall_s=json.dumps({t: round(v, 3) for t, v in walls.items()
+                           if t.startswith(("bb_", "epochs_"))}))
+
+    # (e) the steps at the kernel phase's shape (5 x 5,000 x 4,000)
+    step_err = {}
+    args = fused_inputs(seed=21)
+    n_x, n_r = args[7:]
+    for with_sv, name in ((True, "sv_bin_partials"), (False, "mvbs_partials")):
+        one_step = tp.survey_pipeline_step(None, n_x, n_r, with_sv=with_sv)(*args[:7])
+        sbp.reset_launches()
+        got = [tp.survey_pipeline_step(mesh, n_x, n_r, with_sv=with_sv)(*args[:7])
+               for _ in range(2)]
+        torch.cuda.synchronize()
+        launches[name] += sbp.LAUNCHES[name]
+        checks[f"{name} {MESH_SHARDS} launches a step"] = sbp.LAUNCHES[name] == 2 * MESH_SHARDS
+        mv, mv1, mv_again = ((x[1] if with_sv else x) for x in (got[0], one_step, got[1]))
+        if with_sv:
+            checks["K3 mesh Sv = one device (bit)"] = torch.equal(
+                got[0][0].view(torch.int32), one_step[0].view(torch.int32))
+        checks[f"{name} mesh rerun (bit)"] = torch.equal(mv.view(torch.int32),
+                                                        mv_again.view(torch.int32))
+        step_err[name], checks[f"{name} mesh MVBS vs one device"] = _max_db(
+            mv.cpu().numpy(), mv1.cpu().numpy())
+        checks[f"{name} mesh MVBS vs one device"] &= step_err[name] <= MVBS_ATOL_DB
+        del one_step, got, mv, mv1, mv_again
+    mesh3 = make_mesh(MESH_SHARDS, range_axis=2, devices=["cuda:0"] * MESH_SHARDS)
+    sv3, mv3 = tp.survey_pipeline_step(mesh3, n_x, n_r)(*args[:7])
+    sv1, mv1 = tp.survey_pipeline_step(None, n_x, n_r)(*args[:7])
+    same_nan = torch.equal(torch.isnan(sv3), torch.isnan(sv1))
+    checks["3-axis Sv vs one device"] = same_nan and torch.allclose(
+        sv3, sv1, rtol=SV_RTOL, atol=SV_ATOL, equal_nan=True)
+    step_err["3_axis"], ok3 = _max_db(mv3.cpu().numpy(), mv1.cpu().numpy())
+    checks["3-axis MVBS vs one device"] = ok3 and step_err["3_axis"] <= MVBS_ATOL_DB
+    del sv3, mv3, sv1, mv1, args
+    power, dr, shift, ab, off, vl, x_rel, edges, W = chunk_inputs(seed=22, vary_dr=False)
+    closed = (power, dr, shift, ab, off, vl, x_rel, edges)
+    n_r_c = len(edges) - 1
+    m_closed = tp.sharded_mvbs_step_closed(mesh, W, n_r_c)(*closed)
+    m_closed1 = tp.sharded_mvbs_step_closed(None, W, n_r_c)(*closed)
+    step_err["closed"], okc = _max_db(m_closed.cpu().numpy(), m_closed1.cpu().numpy())
+    checks["closed step mesh vs one device"] = okc and step_err["closed"] <= MVBS_ATOL_DB
+    for uniform, name in ((True, "window_partials_uniform"), (False, "window_partials")):
+        step_args = chunk_inputs(seed=23, vary_dr=not uniform)
+        W = step_args[-1]
+        s_1, c_1 = tp.sharded_mvbs_partials_closed(None, W, n_r_c, uniform=uniform)(
+            *step_args[:8])
+        wp.reset_launches()
+        s_m, c_m = tp.sharded_mvbs_partials_closed(mesh, W, n_r_c, uniform=uniform)(
+            *step_args[:8])
+        torch.cuda.synchronize()
+        launches[name] += wp.LAUNCHES[name]
+        checks[f"{name} {MESH_SHARDS} launches"] = wp.LAUNCHES[name] == MESH_SHARDS
+        s_m, c_m, s_1, c_1 = (t.double().cpu().numpy() for t in (s_m, c_m, s_1, c_1))
+        checks[f"{name} mesh counts exact"] = np.array_equal(c_m, c_1)
+        step_err[name] = float(np.max(np.abs(s_m - s_1) / np.where(s_1 != 0, s_1, 1.0)))
+        checks[f"{name} mesh sums vs one device"] = step_err[name] <= SUM_RTOL
+    say("mesh_steps", shape=[C, P, R], mesh=json.dumps(mesh.shape),
+        mesh_3_axis=json.dumps(mesh3.shape), max_abs_dB_or_rel=json.dumps(step_err),
+        limit_dB=MVBS_ATOL_DB, sum_rtol=SUM_RTOL)
+
+    failed = [k for k, v in checks.items() if not v]
+    say("mesh_check", checks=len(checks), failed=json.dumps(failed),
+        phase_s=round(time.perf_counter() - t_phase, 1))
+    if failed:
+        raise AssertionError(f"mesh phase: {failed}")
+    return dict(launches)
+
 
 def write_files():
     sys.path.insert(0, str(ROOT / "tests"))
@@ -2071,6 +2374,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(wp.LAUNCHES)
+        one_device = {k: v for k, v in launches.items() if v}
         say("e2e_cuda", wall_s=round(wall, 3), pings_per_s=round(n_pings / wall, 1),
             launches=json.dumps(launches), stages=json.dumps(timer.report(log=False)))
         t0 = time.perf_counter()
@@ -2091,6 +2395,8 @@ def main():
         azfp_launches, azfp_files, azfp_xml = azfp_phase(files[0])
         torch.cuda.empty_cache()
         cruise_launches = cruise_phase(files, azfp_files, azfp_xml, smi)
+        torch.cuda.empty_cache()
+        mesh_launches = mesh_phase(files, (mvbs, one_device, wall), smi)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -2129,17 +2435,21 @@ def main():
          "replaces": "echopype_tpu/ops/pallas_window.py:174",
          "launches": launches["window_partials_uniform"]
          + ek80_launches["window_partials_uniform"]
-         + cruise_launches.get("window_partials_uniform", 0), **k1},
+         + cruise_launches.get("window_partials_uniform", 0)
+         + mesh_launches.get("window_partials_uniform", 0), **k1},
         {"name": "window_partials", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:219",
          "launches": launches["window_partials"] + ek80_launches["window_partials"]
-         + cruise_launches.get("window_partials", 0), **k2},
+         + cruise_launches.get("window_partials", 0)
+         + mesh_launches.get("window_partials", 0), **k2},
         {"name": "sv_bin_partials", "route": "cuda", "source": src_fused,
          "replaces": "echopype_tpu/ops/pallas_pipeline.py:30",
-         "launches": sv_launches["sv_bin_partials"], **k3},
+         "launches": sv_launches["sv_bin_partials"]
+         + mesh_launches.get("sv_bin_partials", 0), **k3},
         {"name": "mvbs_partials", "route": "cuda", "source": src_fused,
          "replaces": "echopype_tpu/ops/pallas_pipeline.py:170",
-         "launches": sv_launches["mvbs_partials"], **k4},
+         "launches": sv_launches["mvbs_partials"]
+         + mesh_launches.get("mvbs_partials", 0), **k4},
         # the float32 dB instances of K1 / K2: K2's runs every chunk of the
         # AZFP survey; K1's is on no survey path (AZFP echo_range has an
         # intercept, so it is never uniform) and runs in the kernel phase only

@@ -23,7 +23,10 @@ multi-file cruise: ``open_raw`` per file (or the raw survey's
 reversed ping times, in memory or in a zarr store) -> ``compute_Sv`` ->
 the grids -> ``metrics`` (abundance, center of mass, dispersion,
 evenness, aggregation); ``utils.profiling.trace`` records a
-``torch.profiler`` window.  The host-only layer (``convert``,
+``torch.profiler`` window.  Multi-device surveys: ``parallel.make_mesh``
+builds a (ping, channel[, range]) grid of devices that one process drives,
+and the streamers' ``mesh=`` and the ``parallel.sharded_*`` steps run each
+block on its device.  The host-only layer (``convert``,
 ``echodata``, ``xrlite`` with its datatree stores and xarray facade,
 ``storage``, ``native``, calibration parameter resolution, ``qc``,
 ``metrics``, ``colormap``, ``utils``) is the port's own copy of the

@@ -15,7 +15,11 @@ every ping bin is a contiguous run and reduces by a 0/1 matmul.
   streamers pass the row itself, ``*_grid``, ``*_row_sum``), on a grid that
   varies by ping a scatter-add of each sample into its own bin
   (:func:`_sample_bin_sums`).  Every bin sums only its own samples, and
-  every float32 matmul runs with TF32 off (``device.py``).
+  every float32 matmul runs with TF32 off (``device.py``).  The window
+  partials sum their pings' range sums in float64: a chunk split over a
+  mesh's ping blocks then gives the one-device sums up to float64 rounding,
+  where float32 window sums of other groupings differed by up to 2.2e-6 dB
+  on a 101,056-ping survey.
 """
 
 from __future__ import annotations
@@ -291,7 +295,8 @@ def _window_partials(sv_db, in_bin, range_sums, x_rel, n_x_window, skipna):
     n1 = range_sums(ok.to(lin.dtype))
     nan1 = torch.zeros_like(n1) if skipna else range_sums((isnan_sv & in_bin).to(lin.dtype))
     n_r = s1.shape[2]
-    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2), _x_rel_bounds(x_rel, n_x_window))
+    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2).double(),
+                              _x_rel_bounds(x_rel, n_x_window))
     return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
 
 
@@ -305,7 +310,7 @@ def binned_window_partials(sv_db, er, r_edges, x_rel, n_x_window: int, skipna: b
     :func:`er_is_uniform`) takes the per-channel 0/1 matmul over the range
     axis, as :func:`binned_window_partials_grid` does; otherwise each sample
     adds into its own bin.  Returns (sums, counts, nan_counts)
-    [C, n_x_window, n_r].
+    [C, n_x_window, n_r] float64 (the ping sums accumulate in float64).
     """
     return _window_partials(sv_db, ~torch.isnan(er),
                             _range_bin_sums(er, r_edges, closed, uniform_er),
@@ -314,10 +319,11 @@ def binned_window_partials(sv_db, er, r_edges, x_rel, n_x_window: int, skipna: b
 
 def binned_window_sum_raw(values, er, r_edges, x_rel, n_x_window: int, closed: str = "left",
                           uniform_er: bool = False):
-    """NaN-skipping raw sums on a local ping-bin window: [C, n_x_window, n_r]."""
+    """NaN-skipping raw sums on a local ping-bin window: [C, n_x_window, n_r]
+    float64 (the ping sums accumulate in float64)."""
     ok = ~torch.isnan(values) & ~torch.isnan(er)
     s1 = _range_bin_sums(er, r_edges, closed, uniform_er)(torch.where(ok, values, 0.0))
-    return banded_x_reduce(s1, _x_rel_bounds(x_rel, n_x_window))
+    return banded_x_reduce(s1.double(), _x_rel_bounds(x_rel, n_x_window))
 
 
 def binned_window_partials_grid(sv_db, er_grid, r_edges, x_rel, n_x_window: int,
@@ -327,7 +333,7 @@ def binned_window_partials_grid(sv_db, er_grid, r_edges, x_rel, n_x_window: int,
     er_grid [C, R] float32 (NaN = no bin) replaces the [C, P, R] range
     operand; membership and results equal ``binned_window_partials(...,
     uniform_er=True)`` on the row broadcast over the pings.  Returns
-    (sums, counts, nan_counts) float32 [C, n_x_window, n_r].
+    (sums, counts, nan_counts) float64 [C, n_x_window, n_r].
     """
     return _window_partials(sv_db, ~torch.isnan(er_grid)[:, None, :],
                             lambda v: _uniform_bin_matmul(v, er_grid, r_edges, closed),

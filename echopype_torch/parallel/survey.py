@@ -38,6 +38,14 @@ of K1/K2).  ``noise_masks`` runs the ``clean`` masks on each whole file
 (their windows need the file's context) and NaNs the flagged samples; the
 raw streamer then calibrates every file to Sv first and streams those.
 
+All three take ``mesh=`` (``parallel.make_mesh``): each chunk, rounded up
+to a multiple of the ping shards (``_mesh_layout``), splits over the mesh's
+(ping, channel) blocks and every block runs the chunk's step on its device
+(``pipeline.sharded_*``: K1 / K2 once a block in power mode, the freq-diff
+step, the Sv binning); the blocks' partials add up on the mesh's first
+device, which also runs the unsharded work (decode-side calibration, the
+masks, ``compute_Sv`` of the complex chunks).
+
 The host-to-device copies are plain synchronous ``.to(device)``; the two
 int16 staging buffers alternate, so pinned asynchronous copies can replace
 them later without a buffer being overwritten while a copy reads it.
@@ -69,10 +77,17 @@ from ..utils.log import _init_logger
 from ..utils.profiling import StageTimer
 from ..utils.prov import echopype_prov_attrs
 from ..xrlite import Dataset
+from .mesh import Mesh, check_mesh
 from .pipeline import (
     _CMP,
     closed_bounds_k0_np,
     closed_window_counts_np,
+    sharded_binned_partials,
+    sharded_binned_partials_grid,
+    sharded_binned_row_sum,
+    sharded_binned_sum_raw,
+    sharded_mvbs_partials_closed,
+    sharded_mvbs_partials_freqdiff,
     sv_mvbs_window_partials,
     sv_mvbs_window_partials_freqdiff,
     sv_mvbs_window_partials_uniform,
@@ -139,17 +154,56 @@ def _global_ping_bins(pt_i8, ping_edges_i8, n_x):
 _EK60_MODELS = ("EK60", "ES70")
 _EK80_MODELS = ("EK80", "ES80", "EA640")
 _AZFP_MODELS = ("AZFP", "AZFP6")
-_UNPORTED_ITEMS = {"mesh": 10}
 
 
-def _refuse_unported(**options):
-    """Raise for a survey option the port does not run yet."""
-    asked = [k for k, v in options.items() if v is not None]
-    if asked:
-        items = ", ".join(f"{k} (item {_UNPORTED_ITEMS[k]})" for k in asked)
-        raise NotImplementedError(
-            f"{items}: not ported to echopype_torch yet (ROADMAP Queue 1); use echopype_tpu"
+def _mesh_and_device(mesh, device):
+    """(mesh checked, or None; the device of the streamer's unsharded work):
+    with a mesh, its first device (where the partials are summed)."""
+    if mesh is None:
+        return None, resolve_device(device)
+    mesh = check_mesh(mesh)
+    return mesh, mesh.devices.flat[0]
+
+
+def _mesh_layout(mesh, chunk_pings: int, n_channels: int) -> int:
+    """Check the mesh's axes against the workload; return the chunk rounded
+    up to a multiple of the ping shards (``chunk_pings`` without a mesh)."""
+    if mesh is None:
+        return chunk_pings
+    if "ping" not in mesh.axis_names or "channel" not in mesh.axis_names:
+        raise ValueError("survey mesh needs 'ping' and 'channel' axes (make_mesh)")
+    if "range" in mesh.axis_names and mesh.shape["range"] != 1:
+        raise ValueError("survey streaming shards ping/channel only; use range_axis=1")
+    ch_shards = mesh.shape["channel"]
+    if n_channels % ch_shards != 0:
+        raise ValueError(
+            f"{n_channels} channels not divisible by mesh channel axis {ch_shards}"
         )
+    ping_shards = mesh.shape["ping"]
+    return -(-chunk_pings // ping_shards) * ping_shards
+
+
+def _ping_pad(n, mesh):
+    """Pings to add to a chunk of ``n`` so that it splits over the mesh's
+    ping shards (0 without a mesh)."""
+    return 0 if mesh is None else -n % mesh.shape["ping"]
+
+
+def _pad_pings(a, pad, fill=np.nan):
+    """Pad axis 1 (pings) of ``a`` with ``pad`` entries of ``fill``."""
+    if not pad:
+        return a
+    widths = [(0, 0)] * a.ndim
+    widths[1] = (0, pad)
+    return np.pad(a, widths, constant_values=fill)
+
+
+def _channel_mesh(mesh, n_channels):
+    """``mesh``, or its first channel column for a work unit of fewer
+    channels than the channel axis (a single-channel EK80 epoch)."""
+    if mesh is None or n_channels % mesh.shape["channel"] == 0:
+        return mesh
+    return Mesh(mesh.devices[:, :1], mesh.axis_names)
 
 
 def _widest_window(x_ids, chunk_pings):
@@ -315,11 +369,13 @@ class _PowerChunkStreamer:
     indices in two alternating reusable buffers; otherwise (AZFP) ships the
     float32 dB power, its padded pings NaN.  Pads the last chunk (padded
     pings have valid length 0 and park past the window) and launches the
-    chunk's kernel.
+    chunk's kernel, on each block of ``mesh`` when there is one (the
+    chunk is then a multiple of its ping shards, :func:`_mesh_layout`).
     """
 
     def __init__(self, n_ch, chunk_pings, R_max, window, n_r, range_edges, acc, timer,
-                 device, ship_i16=True):
+                 device, ship_i16=True, mesh=None):
+        self.mesh = mesh
         self.chunk_pings = chunk_pings
         self.window = window
         self.n_r = n_r
@@ -395,7 +451,13 @@ class _PowerChunkStreamer:
                     vl_chunk, x_rel.astype("i4"), self.r_edges_f4, window, self.n_r)
             r0_chunk = None if r0 is None else _pad2(r0)
             with timer.stage(dev_stage):
-                if fd is not None:
+                if self.mesh is not None:
+                    s, c = self._mesh_step(args, r0_chunk, uniform, fd)
+                    if c is None:
+                        c = closed_window_counts_np(
+                            host_counts[0], host_counts[1], vl_chunk, x_rel, window
+                        )
+                elif fd is not None:
                     s, c = sv_mvbs_window_partials_freqdiff(*args, *fd, r0=r0_chunk,
                                                             device=self.device)
                 elif uniform:
@@ -408,6 +470,19 @@ class _PowerChunkStreamer:
                 else:
                     s, c = sv_mvbs_window_partials(*args, r0=r0_chunk, device=self.device)
             acc.push(s, c, x_base)
+
+    def _mesh_step(self, args, r0, uniform, fd):
+        """One chunk on the mesh: (sums, counts), counts None where the
+        host's closed form gives them (uniform files, no mask)."""
+        base, window = args[:8], self.window
+        if fd is not None:
+            ia, ib, op, diff = fd
+            return sharded_mvbs_partials_freqdiff(self.mesh, window, self.n_r, ia, ib, op)(
+                *base, r0, diff)
+        if uniform:
+            return sharded_mvbs_partials_closed(self.mesh, window, self.n_r, uniform=True,
+                                                with_counts=False)(*base), None
+        return sharded_mvbs_partials_closed(self.mesh, window, self.n_r)(*base, r0)
 
 
 def _is_uniform(dr, shift, r0=None):
@@ -502,8 +577,15 @@ def run_survey_mvbs_from_raw(
     worker that fails makes the survey raise.  The ``noise_masks`` and
     complex routes ignore ``workers``, as in the JAX package.
 
-    Not ported yet (``NotImplementedError``, see ROADMAP Queue 1): ``mesh``
-    (item 10).
+    ``mesh`` (``parallel.make_mesh``, a (ping, channel) grid of devices; a
+    mesh of another kind raises ``TypeError``): each chunk, rounded up to a
+    multiple of the ping shards, splits over the mesh and each block runs
+    the chunk's step on its device (K1 / K2, one launch a block; the
+    freq-diff step, which needs channel axis 1; the Sv binning of the
+    complex and noise-mask routes); the partials add up on the mesh's first
+    device, which also runs the unsharded work (``device`` is then unused).
+    ``device_fused`` with a mesh takes the chunked complex path, with a
+    warning, as in the JAX package.
 
     Returns an MVBS Dataset on the global (ping_time bin, range bin) grid;
     ``attrs["device"]`` names the device and ``attrs["stage_timing"]`` holds
@@ -514,12 +596,11 @@ def run_survey_mvbs_from_raw(
             "run_survey_mvbs_from_raw supports EK60/ES70/EK80/ES80/EA640/AZFP/AZFP6 "
             f"power mode, not {sonar_model!r}"
         )
-    _refuse_unported(mesh=mesh)
+    mesh, dev = _mesh_and_device(mesh, device)
     _check_noise_masks(noise_masks)
     complex_mode = encode_mode == "complex" or waveform_mode in ("BB", "FM")
     if sonar_model in _EK60_MODELS and complex_mode:
         raise ValueError("EK60-style data can only be streamed in CW power mode")
-    dev = resolve_device(device)
     range_bin_m = _resolve_bin_m(range_bin, range_bin_m)
     timer = timer or StageTimer()
     raw_files = list(raw_files)
@@ -528,12 +609,13 @@ def run_survey_mvbs_from_raw(
     if noise_masks is not None:
         return _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin,
                                  chunk_pings, env_params, cal_params, use_swap, xml_path,
-                                 timer, waveform_mode, encode_mode, freq_diff, noise_masks, dev)
+                                 timer, waveform_mode, encode_mode, freq_diff, noise_masks, dev,
+                                 mesh)
     if complex_mode:
         return _run_survey_mvbs_complex(
             raw_files, sonar_model, waveform_mode, encode_mode, range_bin_m, ping_time_bin,
             chunk_pings, env_params, cal_params, use_swap, xml_path, timer, device_fused, dev,
-            freq_diff,
+            freq_diff, mesh,
         )
 
     make_cal = _power_calibrator(sonar_model, env_params, cal_params, dev)
@@ -541,14 +623,14 @@ def run_survey_mvbs_from_raw(
         try:
             return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
                                  chunk_pings, env_params, use_swap, xml_path, timer,
-                                 make_cal, dev)
+                                 make_cal, dev, mesh)
         except _ScanUnavailable as e:
             logger.warning(f"extent scan unavailable ({e}); using eager two-pass ingest")
     pool = None
     if workers and len(raw_files) > 1:
         pool = (workers, (sonar_model, use_swap, xml_path, env_params, cal_params))
     return _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-                      use_swap, xml_path, timer, make_cal, dev, freq_diff, pool)
+                      use_swap, xml_path, timer, make_cal, dev, freq_diff, pool, mesh)
 
 
 def _power_calibrator(sonar_model, env_params, cal_params, dev):
@@ -573,7 +655,7 @@ def _power_calibrator(sonar_model, env_params, cal_params, dev):
 
 def _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
                       env_params, cal_params, use_swap, xml_path, timer, waveform_mode,
-                      encode_mode, freq_diff, noise_masks, dev):
+                      encode_mode, freq_diff, noise_masks, dev, mesh=None):
     """Two-pass raw stream for ``noise_masks``: the clean masks need each
     file's whole Sv, so every file calibrates to a full Sv dataset (any
     mode) on demand and :func:`run_survey_mvbs` masks and bins it,
@@ -592,7 +674,7 @@ def _run_noise_masked(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_
     return run_survey_mvbs([provider(f) for f in raw_files], range_bin_m=range_bin_m,
                            ping_time_bin=ping_time_bin, chunk_pings=chunk_pings, timer=timer,
                            freq_diff=freq_diff, noise_masks=noise_masks, reopen=True,
-                           device=dev)
+                           mesh=mesh, device=dev)
 
 
 def _load_inputs(f, sonar_model, use_swap, xml_path, make_cal):
@@ -648,10 +730,11 @@ def _pool_load(raw_files, workers, args):
 
 
 def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-               use_swap, xml_path, timer, make_cal, dev, freq_diff=None, pool=None):
+               use_swap, xml_path, timer, make_cal, dev, freq_diff=None, pool=None, mesh=None):
     """Two-pass path: decode every file (in a process pool when ``pool`` is
     ``(workers, args)``), fix the global grids, then stream (every chunk
-    through the masked step when ``freq_diff`` is set)."""
+    through the masked step when ``freq_diff`` is set; over ``mesh`` when
+    given)."""
     with timer.stage("ingest"):
         if pool is not None:
             loaded = _pool_load(raw_files, *pool)
@@ -674,6 +757,7 @@ def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
     )
     range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
     n_x, n_r = len(ping_edges) - 1, len(range_edges) - 1
+    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
 
     ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
     x_ids = [_global_ping_bins(item[6].astype("i8"), ping_edges_i8, n_x) for item in loaded]
@@ -684,7 +768,7 @@ def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
     R_max = max(item[0].shape[2] for item in loaded)
     streamer = _PowerChunkStreamer(len(chans), chunk_pings, R_max, window, n_r,
                                    range_edges, acc, timer, dev,
-                                   ship_i16=sonar_model not in _AZFP_MODELS)
+                                   ship_i16=sonar_model not in _AZFP_MODELS, mesh=mesh)
     for (power, dr, shift, alpha, offset, r0, *_), x_idx_all in zip(loaded, x_ids):
         streamer.stream_file(power, dr, shift, alpha, offset, x_idx_all,
                              _is_uniform(dr, shift, r0), fd, r0=r0)
@@ -705,7 +789,7 @@ def _warm(f):
 
 
 def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-                  env_params, use_swap, xml_path, timer, make_cal, dev):
+                  env_params, use_swap, xml_path, timer, make_cal, dev, mesh=None):
     """Single-pass streamer with a decode-ahead thread.
 
     Pass 0 is a header-only extent scan: the unique RAW0 timestamps are the
@@ -741,6 +825,7 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
     )
     range_edges = np.arange(0, r_bound + range_bin_m, range_bin_m)
     n_r = len(range_edges) - 1
+    chunk_pings = _mesh_layout(mesh, chunk_pings, scans[0].n_channels)
 
     ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
     x_ids = [_global_ping_bins(s.times.astype("i8"), ping_edges_i8, n_x) for s in scans]
@@ -772,7 +857,7 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
                 acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
                 streamer = _PowerChunkStreamer(
                     len(chans), chunk_pings, max(s.max_count for s in scans),
-                    window, n_r, range_edges, acc, timer, dev,
+                    window, n_r, range_edges, acc, timer, dev, mesh=mesh,
                 )
             elif chans != chans0:
                 raise ValueError("all raw files must share the same channels")
@@ -813,7 +898,7 @@ def _n_filter_times(ed):
 
 def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode, range_bin_m,
                              ping_time_bin, chunk_pings, env_params, cal_params, use_swap,
-                             xml_path, timer, device_fused, dev, freq_diff=None):
+                             xml_path, timer, device_fused, dev, freq_diff=None, mesh=None):
     """EK80 complex / broadband raw -> MVBS.
 
     Per chunk of pings the beam group is ping-sliced and ``compute_Sv`` runs
@@ -831,6 +916,11 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     streams in chunks of that Sv, also when ``device_fused`` asked for the
     fused path, which cannot see another channel's epoch (a warning says
     so).
+
+    With ``mesh`` each chunk's bins run on the mesh's blocks (a
+    single-channel epoch unit on its first channel column), and
+    ``device_fused`` takes this chunked path, with a warning, as in the JAX
+    package.
     """
     from ..calibrate.api import compute_Sv, epoch_slice_dicts
     from ..echodata.simrad import retrieve_correct_beam_group
@@ -850,6 +940,7 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     for ed, bp in zip(eds[1:], beam_paths[1:]):
         if list(ed[bp].coords["channel"].values) != chans:
             raise ValueError("all raw files must share the same channels")
+    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
     t_min = min(pt.min() for pt in ping_times)
     t_max = max(pt.max() for pt in ping_times)
     ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
@@ -860,7 +951,10 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
         fd = _resolve_freq_diff(freq_diff, chans,
                                 eds[0][beam_paths[0]].get("frequency_nominal"))
     multi_epoch = [_n_filter_times(ed) > 1 for ed in eds]
-    if device_fused:
+    if device_fused and mesh is not None:
+        logger.warning("device_fused complex streaming has no mesh path; using the "
+                       "chunked compute_Sv path")
+    elif device_fused:
         if fd is None or not any(multi_epoch):
             return _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m,
                                       chunk_pings, sv_kw, timer, dev, fd=fd)
@@ -913,13 +1007,18 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
 
     def bin_chunk(sv, er, x_rel):
         """Bin one calibrated chunk (Sv [C, P, R], its echo_range):
-        membership on the host in float64, the mask and sums on the device."""
+        membership on the host in float64, the mask and sums on the device
+        (on the mesh's blocks, padded pings NaN and parked past the
+        window)."""
         sv = np.asarray(sv, dtype="f4")
         er = np.asarray(er, dtype="f8")
         er = binning.exact_bin_encode_np(np.broadcast_to(er, sv.shape), range_edges)[0]
-        s, c, _ = binning.binned_window_partials(
-            masked(binning._to_dev(sv, dev)), binning._to_dev(er, dev), enc_edges,
-            binning._to_dev(x_rel, dev, "i4"), window, uniform_er=uniform)
+        unit_mesh = _channel_mesh(mesh, sv.shape[0])
+        pad = _ping_pad(sv.shape[1], unit_mesh)
+        s, c, _ = sharded_binned_partials(unit_mesh, window, uniform_er=uniform, device=dev)(
+            masked(binning._to_dev(_pad_pings(sv, pad), dev)),
+            binning._to_dev(_pad_pings(er, pad), dev), enc_edges,
+            binning._to_dev(np.pad(x_rel, (0, pad), constant_values=window), dev, "i4"))
         return s, c
 
     def chunk_sv(ds):
@@ -1171,16 +1270,19 @@ def run_survey_mvbs(
         function, run on ``device`` over each whole file; a sample any
         mask flags joins no bin (the composition clean.mask_* ->
         apply_mask -> binning, per file).
-    Not ported yet (``NotImplementedError``): ``mesh`` (ROADMAP Queue 1
-    item 10).
+    mesh : ``parallel.make_mesh`` grid of devices (a mesh of another kind
+        raises ``TypeError``); each chunk, rounded up to a multiple of the
+        ping shards and padded with NaN pings parked past the window,
+        splits over the mesh (``pipeline.sharded_binned_partials`` /
+        ``sharded_binned_partials_grid``); the mask and the partials' sums
+        run on the mesh's first device.
 
     Returns an MVBS Dataset on the union (ping_time bin, range bin) grid;
     ``attrs`` carry ``device``, ``routes`` (one per source, "grid" or
     "per_ping") and ``stage_timing``.
     """
-    _refuse_unported(mesh=mesh)
+    mesh, dev = _mesh_and_device(mesh, device)
     _check_noise_masks(noise_masks)
-    dev = resolve_device(device)
     timer = timer or StageTimer()
     range_bin_m = _resolve_bin_m(range_bin, range_bin_m)
     providers, reopen = _sv_providers(sv_sources, reopen)
@@ -1207,9 +1309,12 @@ def run_survey_mvbs(
                                      ping_time_bin)
     range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
     n_x, n_r = len(ping_edges) - 1, len(range_edges) - 1
+    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
     edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
     x_ids = [_global_ping_bins(pt.astype("i8"), edges_i8, n_x) for pt in ping_times]
     window = _widest_window(x_ids, chunk_pings)
+    grid_step = sharded_binned_partials_grid(mesh, window, device=dev)
+    step = sharded_binned_partials(mesh, window, device=dev)
 
     fd = _resolve_freq_diff(freq_diff, chans, freq_nom)
     masked = _fd_mask(fd) if fd is not None else (lambda sv: sv)
@@ -1235,18 +1340,19 @@ def run_survey_mvbs(
         for lo in range(0, sv_all.shape[1], chunk_pings):
             hi = min(lo + chunk_pings, sv_all.shape[1])
             x_base = int(x_idx_all[lo])
+            pad = _ping_pad(hi - lo, mesh)  # padded pings: NaN, parked past the window
             if not use_grid:
                 with timer.stage("encode"):
                     er_enc = binning.exact_bin_encode_np(er_all[:, lo:hi], range_edges)[0]
             with timer.stage("device_binning"):
-                sv = masked(binning._to_dev(sv_all[:, lo:hi], dev))
-                x_rel = binning._to_dev(x_idx_all[lo:hi] - x_base, dev, "i4")
+                sv = masked(binning._to_dev(_pad_pings(sv_all[:, lo:hi], pad), dev))
+                x_rel = binning._to_dev(np.pad(x_idx_all[lo:hi] - x_base, (0, pad),
+                                               constant_values=window), dev, "i4")
                 if use_grid:
-                    s, c, _ = binning.binned_window_partials_grid(sv, row, enc_edges, x_rel,
-                                                                  window)
+                    s, c, _ = grid_step(sv, row, enc_edges, x_rel)
                 else:
-                    s, c, _ = binning.binned_window_partials(
-                        sv, binning._to_dev(er_enc, dev), enc_edges, x_rel, window)
+                    s, c, _ = step(sv, binning._to_dev(_pad_pings(er_enc, pad), dev), enc_edges,
+                                   x_rel)
             acc.push(s, c, x_base)
         del ds, sv_all, er_all
     sums, counts = acc.finish()
@@ -1301,14 +1407,14 @@ def run_survey_nasc(
     depth row, and the height sums as that row times each bin's ping
     count); the others the per-ping route, as in :func:`run_survey_mvbs`.
     ``noise_masks`` as in :func:`run_survey_mvbs`: the ``clean`` masks run
-    on each whole file and a flagged sample joins no bin.
-    Not ported yet (``NotImplementedError``): ``mesh`` (ROADMAP Queue 1
-    item 10).  ``attrs`` carry ``device`` and ``routes`` as in
+    on each whole file and a flagged sample joins no bin.  ``mesh`` as in
+    :func:`run_survey_mvbs` (the height sums through
+    ``pipeline.sharded_binned_sum_raw`` / ``sharded_binned_row_sum``).
+    ``attrs`` carry ``device`` and ``routes`` as in
     :func:`run_survey_mvbs`.
     """
-    _refuse_unported(mesh=mesh)
+    mesh, dev = _mesh_and_device(mesh, device)
     _check_noise_masks(noise_masks)
-    dev = resolve_device(device)
     timer = timer or StageTimer()
     range_bin_m = _parse_x_bin(range_bin, "range_bin")
     dist_bin_nmi = _parse_x_bin(dist_bin, "dist_bin")
@@ -1354,11 +1460,19 @@ def run_survey_nasc(
     dist_edges = np.arange(0, dist_max + dist_bin_nmi, dist_bin_nmi)
     depth_edges = np.arange(0, depth_max + range_bin_m, range_bin_m)
     n_x, n_r = len(dist_edges) - 1, len(depth_edges) - 1
+    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
     side = "right" if closed == "left" else "left"
     # distance-bin ids per file (cumulative distance is non-decreasing)
     x_ids = [np.clip(np.searchsorted(dist_edges, d, side=side) - 1, 0, n_x - 1).astype("i4")
              for d in dists]
     window = _widest_window(x_ids, chunk_pings)
+    # depth membership is encoded (idx + 0.5 against integer edges): the
+    # per-ping route needs no ``closed``
+    step_sv = sharded_binned_partials(mesh, window, skipna=bool(skipna), device=dev)
+    step_h = sharded_binned_sum_raw(mesh, window, device=dev)
+    grid_sv = sharded_binned_partials_grid(mesh, window, skipna=bool(skipna), closed=closed,
+                                           device=dev)
+    grid_h = sharded_binned_row_sum(mesh, window, closed=closed, device=dev)
 
     acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer, n_out=4)
     denom = np.zeros(n_x, dtype="f8")
@@ -1396,25 +1510,24 @@ def run_survey_nasc(
         for lo in range(0, sv_all.shape[1], chunk_pings):
             hi = min(lo + chunk_pings, sv_all.shape[1])
             x_base = int(x_idx_all[lo])
+            pad = _ping_pad(hi - lo, mesh)  # padded pings: NaN, parked past the window
             if not use_grid:
                 with timer.stage("encode"):
                     dep_phys = depth_b[:, lo:hi]
-                    ddep = np.diff(dep_phys, axis=2)
-                    dep_enc = binning.exact_bin_encode_np(dep_phys, depth_edges, closed)[0]
+                    ddep = _pad_pings(np.diff(dep_phys, axis=2), pad)
+                    dep_enc = _pad_pings(
+                        binning.exact_bin_encode_np(dep_phys, depth_edges, closed)[0], pad)
             with timer.stage("device_binning"):
-                sv = binning._to_dev(sv_all[:, lo:hi], dev)
-                x_rel = binning._to_dev(x_idx_all[lo:hi] - x_base, dev, "i4")
+                sv = binning._to_dev(_pad_pings(sv_all[:, lo:hi], pad), dev)
+                x_rel = binning._to_dev(np.pad(x_idx_all[lo:hi] - x_base, (0, pad),
+                                               constant_values=window), dev, "i4")
                 if use_grid:
-                    s, c, nc = binning.binned_window_partials_grid(
-                        sv, row, enc_edges, x_rel, window, skipna=bool(skipna), closed=closed)
-                    h = binning.binned_window_row_sum(ddep_row, lower_row, enc_edges, x_rel,
-                                                      window, closed=closed)
+                    s, c, nc = grid_sv(sv, row, enc_edges, x_rel)
+                    h = grid_h(ddep_row, lower_row, enc_edges, x_rel)
                 else:
                     dep_t = binning._to_dev(dep_enc, dev)
-                    s, c, nc = binning.binned_window_partials(
-                        sv, dep_t, enc_edges, x_rel, window, skipna=bool(skipna))
-                    h = binning.binned_window_sum_raw(
-                        binning._to_dev(ddep, dev), dep_t[:, :, :-1], enc_edges, x_rel, window)
+                    s, c, nc = step_sv(sv, dep_t, enc_edges, x_rel)
+                    h = step_h(binning._to_dev(ddep, dev), dep_t[:, :, :-1], enc_edges, x_rel)
             acc.push(s, c, nc, h, x_base)
             with timer.stage("host_sums"):
                 ids = x_idx_all[lo:hi]

@@ -265,7 +265,8 @@ def _fused_chunk(seed, C=3, P=157, R=700, n_x=9):
 
 
 def _bits(t):
-    return t.view(torch.int32)
+    """The bits of a float tensor (float32 or the binning's float64)."""
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int64)
 
 
 def _compare_fused(with_sv, ops):
@@ -705,3 +706,106 @@ def test_workers_pool_on_card_bit_identical(cuda, tmp_path, model):
     g, w = (np.asarray(r["Sv"].values) for r in runs)
     np.testing.assert_array_equal(g, w)
     assert np.isfinite(g).any()
+
+
+# ------------------------------------------------------------------ meshes
+def _meshes(n=4, **kw):
+    """The same layout on ``n`` blocks of the card and of the CPU."""
+    from echopype_torch.parallel import make_mesh
+
+    return (make_mesh(n, devices=["cuda:0"] * n, **kw), make_mesh(n, devices=["cpu"] * n, **kw))
+
+
+@pytest.mark.parametrize("kind", ["k1", "k2", "k1_f32", "k2_f32"])
+def test_mesh_window_kernels_per_block_match_plain(cuda, kind):
+    """K1 / K2 (int16 and float32) once per block of a 4-block mesh of the
+    card, against the plain twins on the same blocks of the CPU: counts
+    exact, sums rtol 1e-5; the last ping block holds only parked padding and
+    comes back as zeros; the rerun is bit-identical."""
+    on_card, on_cpu = _meshes()
+    uniform = kind.startswith("k1")
+    ops = (_chunk_f32(11) if kind.endswith("f32") else _chunk(11, vary_dr=not uniform))
+    power, dr, shift, ab, off, vl, ids, edges, W = ops[:9]
+    ids = ids.copy()
+    vl = vl.copy()
+    ids[-80:] = W  # 300 pings: the last block of 75 is all padding
+    vl[:, -80:] = 0
+    args = (power, dr, shift, ab, off, vl, ids, edges)
+    n_r = len(edges) - 1
+    name = ("window_partials_uniform" if uniform else "window_partials") + (
+        "_f32" if kind.endswith("f32") else "")
+    wp.reset_launches()
+    got = tp.sharded_mvbs_partials_closed(on_card, W, n_r, uniform=uniform)(*args)
+    again = tp.sharded_mvbs_partials_closed(on_card, W, n_r, uniform=uniform)(*args)
+    torch.cuda.synchronize()
+    assert wp.LAUNCHES[name] == 8
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tp.sharded_mvbs_partials_closed(on_cpu, W, n_r, uniform=uniform)(*args)
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].numpy(), rtol=1e-5, atol=1e-30)
+    assert float(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("with_sv", [True, False], ids=["k3", "k4"])
+def test_mesh_fused_step_per_block_matches_plain(cuda, with_sv):
+    """K3 / K4 once per (ping, channel) block of the card's mesh against
+    the plain twins on the CPU's: Sv within rtol / atol 1e-5 with identical
+    NaN masks, MVBS within 1e-4 dB; a rerun bit-identical."""
+    on_card, on_cpu = _meshes(4, channel_axis=1)
+    power, dr, shift, ab, off, x_idx, edges, n_x, n_r = _fused_chunk(12, P=160)
+    args = (power, dr, shift, ab, off, x_idx, edges)
+    name = "sv_bin_partials" if with_sv else "mvbs_partials"
+    sbp.reset_launches()
+    got = tp.survey_pipeline_step(on_card, n_x, n_r, with_sv=with_sv)(*args)
+    again = tp.survey_pipeline_step(on_card, n_x, n_r, with_sv=with_sv)(*args)
+    torch.cuda.synchronize()
+    assert sbp.LAUNCHES[name] == 8
+    want = tp.survey_pipeline_step(on_cpu, n_x, n_r, with_sv=with_sv)(*args)
+    got, again, want = ((x if with_sv else (None, x)) for x in (got, again, want))
+    assert torch.equal(_bits(got[1]), _bits(again[1]))
+    if with_sv:
+        sv_g, sv_w = got[0].cpu().numpy(), want[0].numpy()
+        np.testing.assert_array_equal(np.isnan(sv_g), np.isnan(sv_w))
+        np.testing.assert_allclose(sv_g, sv_w, rtol=1e-5, atol=1e-5)
+    m_g, m_w = got[1].cpu().numpy(), want[1].numpy()
+    np.testing.assert_array_equal(np.isnan(m_g), np.isnan(m_w))
+    np.testing.assert_allclose(m_g, m_w, rtol=0, atol=1e-4 if with_sv else 1e-3)
+
+
+def test_mesh_surveys_rerun_bit_identical(cuda, tmp_path):
+    """The raw survey (K1 for the uniform file, K2 for the file whose sound
+    speed varies by ping, once per block) and the Sv-store survey on a
+    (ping 2, channel 2) mesh of the card: two runs bit-identical, within
+    1e-4 dB of the same mesh on the CPU, K1 / K2 four launches a chunk."""
+    import echopype_torch as et
+    from synth_ek60 import write_ek60_raw
+
+    t0 = np.datetime64("2020-01-01T00:00:00", "ns")
+    files = []
+    for i, n in enumerate((40, 37)):
+        p = tmp_path / f"MS{i}-D20200101-T00{i}000.raw"
+        write_ek60_raw(p, n_pings=n, n_samples=90, seed=i, with_angle=False,
+                       t0=t0 + np.timedelta64(i * 50, "s"), jitter_raw0=i == 1)
+        files.append(str(p))
+    on_card, on_cpu = _meshes(4, channel_axis=2)
+    kw = dict(range_bin="5m", ping_time_bin="10s", chunk_pings=15)  # 16: 8 a ping block
+    runs = []
+    for _ in range(2):
+        wp.reset_launches()
+        runs.append(et.run_survey_mvbs_from_raw(files, mesh=on_card, **kw))
+        torch.cuda.synchronize()
+        assert {k: v for k, v in wp.LAUNCHES.items() if v} == {
+            "window_partials_uniform": 4 * 3, "window_partials": 4 * 3}
+    cpu = et.run_survey_mvbs_from_raw(files, mesh=on_cpu, **kw)
+    a, b, w = (np.asarray(r["Sv"].values) for r in (*runs, cpu))
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(np.isnan(a), np.isnan(w))
+    np.testing.assert_allclose(a, w, rtol=0, atol=1e-4, equal_nan=True)
+    sv = [et.calibrate.compute_Sv(et.open_raw(f, sonar_model="EK60"), device=cuda) for f in files]
+    skw = dict(range_bin="5m", ping_time_bin="10s", chunk_pings=10)
+    s1, s2 = (np.asarray(et.run_survey_mvbs(sv, mesh=on_card, **skw)["Sv"].values)
+              for _ in range(2))
+    s_cpu = np.asarray(et.run_survey_mvbs(sv, mesh=on_cpu, **skw)["Sv"].values)
+    np.testing.assert_array_equal(s1, s2)
+    np.testing.assert_allclose(s1, s_cpu, rtol=0, atol=1e-4, equal_nan=True)
+    assert np.isfinite(s1).any()

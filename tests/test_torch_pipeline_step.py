@@ -31,6 +31,7 @@ from echopype_torch.parallel import pipeline as tp
 from echopype_tpu.ops import binning as jb
 from echopype_tpu.ops.calibration import ek_power_cal
 from echopype_tpu.parallel import make_mesh, sharded_sv_mvbs_step
+from echopype_tpu.parallel import pipeline as tp_jax
 
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
@@ -139,20 +140,40 @@ class TestStepAgainstJax:
 
 class TestMeshes:
     def test_one_device_mesh_accepted(self, mesh1):
+        """The port's one-device mesh equals ``mesh=None`` bit for bit; a JAX
+        mesh is refused (the port drives only its own meshes)."""
         args = make_inputs(seed=3)
-        _, m1 = et.survey_pipeline_step(mesh1, *args[7:], device="cpu")(*args[:7])
+        one = et.parallel.make_mesh(devices=["cpu"])
+        _, m1 = et.survey_pipeline_step(one, *args[7:])(*args[:7])
         _, m0 = et.survey_pipeline_step(None, *args[7:], device="cpu")(*args[:7])
         np.testing.assert_array_equal(_np(m1), _np(m0))
+        with pytest.raises(TypeError, match="make_mesh"):
+            et.survey_pipeline_step(mesh1, *args[7:], device="cpu")
 
     @pytest.mark.parametrize("kw", [dict(n_devices=4, channel_axis=1),
                                     dict(n_devices=8, channel_axis=2, range_axis=2)],
                              ids=["ping_channel", "ping_channel_range"])
     def test_multi_device_meshes_raise(self, kw):
-        mesh = make_mesh(**kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            et.survey_pipeline_step(mesh, 8, 5, device="cpu")
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            tp.sharded_sv_mvbs_step(mesh, 8, 5, device="cpu")
+        """Multi-device meshes run: the port's mesh of repeated CPU devices
+        against ``mesh=None`` and the JAX step on the same layout
+        (tests/test_parallel.py:110-123 tolerances); a JAX mesh raises."""
+        power, dr, tvg, ab, off, x_idx, r_edges, n_x, n_r = make_inputs(seed=6)
+        args = (power, dr, tvg, ab, off, x_idx, r_edges)
+        mesh = et.parallel.make_mesh(devices=["cpu"] * kw["n_devices"], **kw)
+        sv_m, m_m = et.survey_pipeline_step(mesh, n_x, n_r)(*args)
+        sv_0, m_0 = tp.sharded_sv_mvbs_step(None, n_x, n_r, device="cpu")(*args)
+        jax_mesh = make_mesh(**kw)
+        step_j = (tp_jax.sharded_sv_mvbs_step_3d(jax_mesh, n_x, n_r) if "range_axis" in kw
+                  else sharded_sv_mvbs_step(jax_mesh, n_x, n_r))
+        sv_j, m_j = step_j(*args)
+        for sv in (sv_0, sv_j):
+            np.testing.assert_array_equal(np.isnan(_np(sv_m)), np.isnan(_np(sv)))
+            np.testing.assert_allclose(_np(sv_m), _np(sv), **SV_TOL)
+        for m in (m_0, m_j):
+            np.testing.assert_array_equal(np.isnan(_np(m_m)), np.isnan(_np(m)))
+            np.testing.assert_allclose(_np(m_m), _np(m), **MVBS_TOL)
+        with pytest.raises(TypeError, match="make_mesh"):
+            tp.sharded_sv_mvbs_step(jax_mesh, n_x, n_r, device="cpu")
 
     def test_cuda_request_without_cuda_raises(self):
         if torch.cuda.is_available():

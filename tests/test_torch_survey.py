@@ -15,13 +15,17 @@ import torch
 
 import echopype_torch as et
 from echopype_torch.commongrid.utils import _parse_x_bin, ping_time_bin_edges
+from echopype_torch.echodata.simrad import retrieve_correct_beam_group
 from echopype_torch.ops import window_partials as wp
 from echopype_torch.parallel import survey as ts
 from echopype_torch.utils.compute import _lin2log, _log2lin
 from echopype_torch.utils.profiling import StageTimer
 from echopype_tpu.commongrid.utils import ping_time_bin_edges as ping_time_bin_edges_pd
 from echopype_tpu.parallel import run_survey_mvbs_from_raw as run_jax
+from synth_azfp import write_azfp_raw, write_azfp_xml
 from synth_ek60 import write_ek60_raw
+from synth_ek80 import write_ek80_raw
+from test_azfp6 import write_azfp6_raw
 
 torch.set_num_threads(1)
 
@@ -118,26 +122,62 @@ def test_corrupt_file_falls_back_to_eager(raw_files, tmp_path):
     np.testing.assert_array_equal(a["Sv"].values, b["Sv"].values)
 
 
+@pytest.fixture(scope="module")
+def option_files(tmp_path_factory):
+    """An EK80 file (two FM channels, a CW complex and a GPT power channel),
+    a two-channel AZFP file with its XML and an AZFP6 file."""
+    d = tmp_path_factory.mktemp("torch_survey_options")
+    ek80, xml = d / "MX-D20210201-T000000.raw", d / "instrument.XML"
+    azfp, azfp6 = d / "21031510.01A", d / "22070112.azfp"
+    write_ek80_raw(ek80, n_pings=10, n_samples=96, seed=3, extra_fm_channel=True)
+    write_azfp_xml(xml)
+    write_azfp_raw(azfp, n_pings=9, seed=1)
+    write_azfp6_raw(azfp6, n_pings=12, num_bins=50)
+    ed = et.open_raw(str(ek80), sonar_model="EK80")
+    bb = [str(c) for c in ed[retrieve_correct_beam_group(ed, "BB", "complex")]
+          .coords["channel"].values]
+    return {"ek80": str(ek80), "azfp": str(azfp), "azfp6": str(azfp6), "xml": str(xml),
+            "bb_eq": f'"{bb[0]}" - "{bb[1]}" > 3.0dB'}
+
+
+_BB = dict(sonar_model="EK80", waveform_mode="BB", encode_mode="complex", range_bin="2m")
+_AZFP_ENV = {"salinity": 32.0, "pressure": 60.0}
+
+
 @pytest.mark.parametrize(
-    "kw, item",
-    [(dict(mesh=object()), 10), (dict(freq_diff="38kHz - 18kHz > 3dB", mesh=object()), 10),
-     (dict(workers=2, mesh=object()), 10),
-     (dict(noise_masks={"impulse": {}}, workers=2, mesh=object()), 10),
-     (dict(sonar_model="EK80", waveform_mode="BB", encode_mode="complex",
-           freq_diff="70kHz - 120kHz > 3dB", workers=2, mesh=object()), 10),
-     (dict(sonar_model="EK80", device_fused=True, mesh=object()), 10),
-     (dict(sonar_model="ES80", noise_masks={"transient": {}}, mesh=object()), 10),
-     (dict(sonar_model="AZFP", mesh=object()), 10),
-     (dict(sonar_model="AZFP6", workers=2, mesh=object()), 10)],
+    "file, kw, channel_axis",
+    [("ragged", {}, 2), ("ragged", dict(freq_diff="38kHz - 18kHz > 3dB"), 1),
+     ("ragged", dict(workers=2), 2),
+     ("ragged", dict(noise_masks={"impulse": {"range_var": "echo_range"}}, workers=2), 2),
+     ("ek80", dict(_BB, freq_diff="bb_eq", workers=2), 1),
+     ("ek80", dict(_BB, device_fused=True), 1),
+     ("ek80", dict(sonar_model="ES80", waveform_mode="CW", encode_mode="power",
+                   noise_masks={"transient": {"range_var": "echo_range"}}), 1),
+     ("azfp", dict(sonar_model="AZFP", xml_path="xml", env_params=_AZFP_ENV), 2),
+     ("azfp6", dict(sonar_model="AZFP6", workers=2, env_params=_AZFP_ENV), 1)],
     ids=["mesh", "freq_diff", "workers", "noise_masks", "complex_freq_diff",
          "device_fused_mesh", "es80_noise_masks", "azfp", "azfp6"],
 )
-def test_unported_options_raise(raw_files, kw, item):
-    """``mesh`` (ROADMAP Queue 1 item 10) raises; ``workers``, ``freq_diff``,
-    ``noise_masks`` and AZFP/AZFP6 are ported (tests/test_torch_workers.py
-    runs ``workers``), and ``mesh`` asked alongside them still raises."""
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        et.run_survey_mvbs_from_raw([raw_files["ragged"]], device="cpu", **kw)
+def test_unported_options_raise(raw_files, option_files, monkeypatch, file, kw, channel_axis):
+    """``mesh`` with each of the other options: an 8-block CPU mesh (ping x
+    channel; channel axis 1 where a frequency-differencing mask or one
+    channel needs it) gives the one-device bins within 1e-4 dB (the JAX
+    tests' mesh tolerance, tests/test_survey.py:383-389) with identical NaN
+    masks and coordinates; ``device_fused`` with a mesh warns and takes the
+    chunked complex path; a mesh that is not the port's raises TypeError."""
+    paths = {**raw_files, **option_files}
+    kw = {k: paths.get(v, v) if isinstance(v, str) else v for k, v in kw.items()}
+    files = [paths[file]]
+    with pytest.raises(TypeError, match="echopype_torch.parallel.make_mesh"):
+        et.run_survey_mvbs_from_raw(files, mesh=object(), device="cpu", **kw)
+    mesh = et.parallel.make_mesh(devices=["cpu"] * 8, channel_axis=channel_axis)
+    warned = []
+    monkeypatch.setattr(ts.logger, "warning", warned.append)
+    got = et.run_survey_mvbs_from_raw(files, mesh=mesh, device="cpu", **kw)
+    if kw.get("device_fused"):
+        assert any("no mesh path" in w for w in warned)
+        kw = dict(kw, device_fused=False)  # the chunked path is the one-device twin
+    _assert_mvbs_close(got, et.run_survey_mvbs_from_raw(files, device="cpu", **kw))
 
 
 def test_unknown_model_and_empty_input(raw_files):

@@ -17,6 +17,7 @@ import echopype_torch as et
 from echopype_torch.ops import window_partials as wp
 from echopype_torch.parallel import survey as ts
 from echopype_torch.utils.profiling import StageTimer
+from echopype_tpu.parallel import make_mesh as jax_mesh
 from echopype_tpu.parallel import run_survey_mvbs_from_raw as jax_survey
 
 import chip_smoke
@@ -172,11 +173,25 @@ def test_noise_masks_match_jax(files, names, xml):
 
 
 def test_options_still_refused(files):
+    """``mesh=`` on the AZFP leg: a mesh that is not the port's raises
+    TypeError; on the port's 8-block CPU mesh (ping 4 x channel 2; chunks of
+    5 round up to 8, so a file's last chunk has parked ping blocks) the
+    survey equals ``mesh=None`` and the JAX streamer on its 8-device mesh
+    within 1e-4 dB, ``workers`` given or not."""
     kw = dict(sonar_model="AZFP", xml_path=files["xml"], env_params=ENV, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="make_mesh"):
         et.run_survey_mvbs_from_raw([files["two_ch_0"]], mesh=object(), **kw)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        et.run_survey_mvbs_from_raw([files["two_ch_0"]], workers=2, mesh=object(), **kw)
+    grid = dict(range_bin="2m", ping_time_bin="5s", chunk_pings=5)
+    mesh = et.parallel.make_mesh(devices=["cpu"] * 8, channel_axis=2)
+    raws = [files["two_ch_0"], files["two_ch_1"]]
+    got = et.run_survey_mvbs_from_raw(raws, mesh=mesh, **grid, **kw)
+    _assert_close(got, et.run_survey_mvbs_from_raw(raws, **grid, **kw))
+    kw.pop("device")
+    _assert_close(got, jax_survey(raws, mesh=jax_mesh(n_devices=8, channel_axis=2), **grid, **kw))
+    one = [files["two_ch_0"]]
+    _assert_close(et.run_survey_mvbs_from_raw(one, workers=2, mesh=mesh, device="cpu", **grid,
+                                              **kw),
+                  et.run_survey_mvbs_from_raw(one, device="cpu", **grid, **kw))
 
 
 def test_missing_salinity_raises(files):
