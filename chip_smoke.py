@@ -123,12 +123,12 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    parameters given explicitly and within 1e-4 dB of the CPU; ``open_raw``
    of one tests/test_ad2cp.py file;
 13. the multi-file cruise (``cruise``): ``run_survey_mvbs_from_raw`` over
-   the survey files A, B, C with ``workers=0, prefetch=False`` and with the
-   default prefetch streamer (the same K1 / K2 launches, within 1e-4 dB),
-   walls and pings/s with ``os.cpu_count()`` and the card's name and power
-   limit; the three AZFP files with ``workers=3`` (a spawned pool decodes
-   one file a process and never touches the card), bit-identical to
-   ``workers=0`` with the same K2-f32 launches; then three EK60
+   the survey files A, B, C with ``workers=3`` (a spawned pool decodes one
+   file a process and never touches the card), bit-identical to
+   ``workers=0, prefetch=False`` on the card with the same K1 / K2 launches,
+   and within 1e-4 dB of the default prefetch streamer; walls and pings/s of
+   the three with ``os.cpu_count()`` and the card's name and power limit;
+   the same for the three AZFP files (K2-f32 a chunk); then three EK60
    files of 2,000 pings at the survey's width through ``open_raw`` ->
    ``combine_echodata`` -> one reversed ping time (as
    tests/test_metrics_qc.py:158-168) -> ``to_zarr`` ->
@@ -248,7 +248,7 @@ AZFP_FD_EQ = "200kHz - 38kHz > 3.0dB"
 COMPOSED_RTOL, COMPOSED_ATOL_DB = 2e-3, 5e-2  # tests/test_survey.py:284
 AZFP6_BINS = 1000
 ECS_PINGS = 2000  # the head of file A calibrated with an ECS file
-# the cruise phase: the AZFP files decoded by a pool of one process a
+# the cruise phase: the survey files decoded by a pool of one process a
 # file; a three-file cruise at the survey's width, combined, repaired (one
 # reversed ping time in the second file) and stored; the metrics on the
 # first file's pings of the card's and the CPU's Sv (host float64 numpy,
@@ -1886,25 +1886,25 @@ def cruise_phase(files, azfp_files, azfp_xml, smi):
         launches.update(got)
         return out, got, timer.report(log=False)
 
-    # (a) the in-process paths on the survey files (the EK60 pool is held to
-    # them on the card by tests/test_torch_kernels_gpu.py::
-    # test_workers_pool_on_card_bit_identical), then the workers= pool on
-    # the AZFP files
+    # (a) the workers= pool on the survey files, then on the AZFP files
     kw = dict(range_bin=f"{RANGE_BIN_M:g}m", ping_time_bin=f"{PING_BIN_S}s", chunk_pings=P)
     chunks = [-(-n // P) for n in E2E_PINGS]
     want = {"window_partials_uniform": chunks[0] + chunks[1], "window_partials": chunks[2]}
     runs, got_l, stages = {}, {}, {}
-    for tag, opts in (("eager", dict(workers=0, prefetch=False)), ("prefetch", {})):
+    for tag, opts in (("pool", dict(workers=CRUISE_WORKERS)),
+                      ("eager", dict(workers=0, prefetch=False)), ("prefetch", {})):
         runs[tag], got_l[tag], stages[tag] = survey(tag, files, **opts, **kw)
-    checks["eager / prefetch launches"] = got_l["eager"] == got_l["prefetch"] == want
-    pre_db, pre_nan = _max_db(runs["prefetch"]["Sv"].values, runs["eager"]["Sv"].values)
-    checks["prefetch vs eager"] = pre_nan and pre_db <= MVBS_ATOL_DB and _same_coords(
-        runs["prefetch"], runs["eager"], ("channel", "ping_time", "echo_range"))
+    checks["pool == workers=0 (bit)"] = _same_run(runs["pool"], runs["eager"])
+    checks["pool launches"] = got_l["pool"] == got_l["eager"] == got_l["prefetch"] == want
+    pre_db, pre_nan = _max_db(runs["prefetch"]["Sv"].values, runs["pool"]["Sv"].values)
+    checks["prefetch vs pool"] = pre_nan and pre_db <= MVBS_ATOL_DB and _same_coords(
+        runs["prefetch"], runs["pool"], ("channel", "ping_time", "echo_range"))
     n_pings = sum(E2E_PINGS)
-    say("cruise_workers", card=repr(smi), cpu_count=os.cpu_count(), pings=n_pings,
-        wall_s=json.dumps({t: round(walls[t], 3) for t in runs}),
+    say("cruise_workers", card=repr(smi), cpu_count=os.cpu_count(), workers=CRUISE_WORKERS,
+        pings=n_pings, wall_s=json.dumps({t: round(walls[t], 3) for t in runs}),
         pings_per_s=json.dumps({t: round(n_pings / walls[t], 1) for t in runs}),
-        prefetch_vs_eager_dB=pre_db, launches=json.dumps(got_l["eager"]), stages=json.dumps(
+        bit_identical=checks["pool == workers=0 (bit)"], prefetch_vs_pool_dB=pre_db,
+        launches=json.dumps(got_l["pool"]), stages=json.dumps(
             {t: {k: v["total_s"] for k, v in stages[t].items()} for t in runs}))
     del runs
 
@@ -1982,7 +1982,7 @@ def cruise_phase(files, azfp_files, azfp_xml, smi):
         MVBS_cuda_vs_cpu_dB=mv_db, metrics_pings=METRICS_PINGS,
         metrics_max_rel=json.dumps(rel), metrics_rtol=METRICS_RTOL,
         seconds=json.dumps({t: round(v, 2) for t, v in walls.items()
-                            if not t.startswith(("eager", "prefetch", "azfp"))}))
+                            if not t.startswith(("pool", "eager", "prefetch", "azfp"))}))
     del comb, back, sv, grid
 
     # (c) one survey of file A traced on the card

@@ -99,9 +99,6 @@ __all__ = [
 _ONE = np.float32(1.0)
 LAUNCHES = {"freqdiff_step": 0}
 
-_ONE = np.float32(1.0)
-LAUNCHES = {"freqdiff_step": 0}
-
 
 def _refine_bounds(bounds, dr0, edges):
     """Smallest q with q*dr0 >= edge on the float32 sample grid.

@@ -88,9 +88,6 @@ from .pipeline import (
     sharded_binned_sum_raw,
     sharded_mvbs_partials_closed,
     sharded_mvbs_partials_freqdiff,
-    sv_mvbs_window_partials,
-    sv_mvbs_window_partials_freqdiff,
-    sv_mvbs_window_partials_uniform,
 )
 
 logger = _init_logger(__name__)
@@ -448,41 +445,29 @@ class _PowerChunkStreamer:
             x_rel = np.pad(x_idx_all[sl] - x_base, (0, pad), constant_values=window)
             vl_chunk = np.pad(valid_len[:, sl], ((0, 0), (0, pad)))
             args = (p_chunk, _pad2(dr, 1.0), _pad2(shift), _pad2(alpha), _pad2(offset),
-                    vl_chunk, x_rel.astype("i4"), self.r_edges_f4, window, self.n_r)
+                    vl_chunk, x_rel.astype("i4"), self.r_edges_f4)
             r0_chunk = None if r0 is None else _pad2(r0)
             with timer.stage(dev_stage):
-                if self.mesh is not None:
-                    s, c = self._mesh_step(args, r0_chunk, uniform, fd)
-                    if c is None:
-                        c = closed_window_counts_np(
-                            host_counts[0], host_counts[1], vl_chunk, x_rel, window
-                        )
-                elif fd is not None:
-                    s, c = sv_mvbs_window_partials_freqdiff(*args, *fd, r0=r0_chunk,
-                                                            device=self.device)
-                elif uniform:
-                    s = sv_mvbs_window_partials_uniform(
-                        *args, with_counts=False, device=self.device
-                    )
+                s, c = self._step(args, r0_chunk, uniform, fd)
+                if c is None:
                     c = closed_window_counts_np(
                         host_counts[0], host_counts[1], vl_chunk, x_rel, window
                     )
-                else:
-                    s, c = sv_mvbs_window_partials(*args, r0=r0_chunk, device=self.device)
             acc.push(s, c, x_base)
 
-    def _mesh_step(self, args, r0, uniform, fd):
-        """One chunk on the mesh: (sums, counts), counts None where the
-        host's closed form gives them (uniform files, no mask)."""
-        base, window = args[:8], self.window
+    def _step(self, base, r0, uniform, fd):
+        """One chunk on the mesh (``mesh=None``: one block on ``device``):
+        (sums, counts), counts None where the host's closed form gives them
+        (uniform files, no mask)."""
+        mesh, window, n_r, dev = self.mesh, self.window, self.n_r, self.device
         if fd is not None:
             ia, ib, op, diff = fd
-            return sharded_mvbs_partials_freqdiff(self.mesh, window, self.n_r, ia, ib, op)(
+            return sharded_mvbs_partials_freqdiff(mesh, window, n_r, ia, ib, op, device=dev)(
                 *base, r0, diff)
         if uniform:
-            return sharded_mvbs_partials_closed(self.mesh, window, self.n_r, uniform=True,
-                                                with_counts=False)(*base), None
-        return sharded_mvbs_partials_closed(self.mesh, window, self.n_r)(*base, r0)
+            return sharded_mvbs_partials_closed(mesh, window, n_r, uniform=True,
+                                                with_counts=False, device=dev)(*base), None
+        return sharded_mvbs_partials_closed(mesh, window, n_r, device=dev)(*base, r0)
 
 
 def _is_uniform(dr, shift, r0=None):

@@ -83,11 +83,13 @@ def test_survey_matches_jax(raw_files, names, prefetch):
 def test_jitter_file_takes_the_per_ping_path(raw_files, monkeypatch):
     """The dr-varying file must reach K2's twin; the others K1's."""
     seen = []
-    real_k1, real_k2 = ts.sv_mvbs_window_partials_uniform, ts.sv_mvbs_window_partials
-    monkeypatch.setattr(ts, "sv_mvbs_window_partials_uniform",
-                        lambda *a, **k: seen.append("K1") or real_k1(*a, **k))
-    monkeypatch.setattr(ts, "sv_mvbs_window_partials",
-                        lambda *a, **k: seen.append("K2") or real_k2(*a, **k))
+    real = ts.sharded_mvbs_partials_closed
+
+    def spy(mesh, *a, uniform=False, **k):
+        seen.append("K1" if uniform else "K2")
+        return real(mesh, *a, uniform=uniform, **k)
+
+    monkeypatch.setattr(ts, "sharded_mvbs_partials_closed", spy)
     et.run_survey_mvbs_from_raw([raw_files["ragged"], raw_files["jitter"]], device="cpu",
                                 range_bin="7m", ping_time_bin="15s", chunk_pings=20)
     assert seen == ["K1", "K1", "K1", "K2", "K2"]

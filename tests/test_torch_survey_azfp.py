@@ -104,15 +104,20 @@ def test_every_chunk_takes_the_float32_k2_step(files, monkeypatch):
     """Float32 power and the intercept reach K2's twin, never K1's; the
     staging and device stages carry their own names."""
     seen = []
-    real_k2 = ts.sv_mvbs_window_partials
-    monkeypatch.setattr(ts, "sv_mvbs_window_partials_uniform",
-                        lambda *a, **k: pytest.fail("K1 on an AZFP chunk"))
+    real = ts.sharded_mvbs_partials_closed
 
-    def spy(*a, **k):
-        seen.append((a[0].dtype, a[0].shape, bool(np.all(k["r0"][:, 0] > 0))))
-        return real_k2(*a, **k)
+    def spy(mesh, *a, uniform=False, **k):
+        if uniform:
+            pytest.fail("K1 on an AZFP chunk")
+        step = real(mesh, *a, **k)
 
-    monkeypatch.setattr(ts, "sv_mvbs_window_partials", spy)
+        def k2(*args):  # power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r_edges, r0
+            seen.append((args[0].dtype, args[0].shape, bool(np.all(args[8][:, 0] > 0))))
+            return step(*args)
+
+        return k2
+
+    monkeypatch.setattr(ts, "sharded_mvbs_partials_closed", spy)
     timer = StageTimer()
     et.run_survey_mvbs_from_raw([files["four_ch_0"]], sonar_model="AZFP",
                                 xml_path=files["xml4"], env_params=ENV, range_bin="2m",

@@ -94,9 +94,13 @@ def test_power_leg_matches_jax(raw, prefetch):
 
 def test_power_leg_runs_k1_per_chunk(raw, monkeypatch):
     seen = []
-    real = ts.sv_mvbs_window_partials_uniform
-    monkeypatch.setattr(ts, "sv_mvbs_window_partials_uniform",
-                        lambda *a, **k: seen.append("K1") or real(*a, **k))
+    real = ts.sharded_mvbs_partials_closed
+
+    def spy(mesh, *a, uniform=False, **k):
+        seen.append("K1" if uniform else "K2")
+        return real(mesh, *a, uniform=uniform, **k)
+
+    monkeypatch.setattr(ts, "sharded_mvbs_partials_closed", spy)
     et.run_survey_mvbs_from_raw(raw["mixed"], sonar_model="EK80", range_bin="5m",
                                 ping_time_bin="5s", chunk_pings=5, device="cpu")
     assert seen == ["K1"] * 6  # 12 + 11 pings in chunks of 5

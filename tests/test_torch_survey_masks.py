@@ -220,8 +220,8 @@ class TestFreqDiffPower:
 
     def test_eager_path_and_step_per_chunk(self, ek60_file, monkeypatch):
         seen = []
-        real = ts.sv_mvbs_window_partials_freqdiff
-        monkeypatch.setattr(ts, "sv_mvbs_window_partials_freqdiff",
+        real = ts.sharded_mvbs_partials_freqdiff
+        monkeypatch.setattr(ts, "sharded_mvbs_partials_freqdiff",
                             lambda *a, **k: seen.append(1) or real(*a, **k))
         monkeypatch.setattr(ts, "_run_streamed", lambda *a, **k: pytest.fail("streamed"))
         et.run_survey_mvbs_from_raw([ek60_file, ek60_file], sonar_model="EK60",
