@@ -36,14 +36,24 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    sums within rtol 1e-5, two runs bit-identical, both timed, and its
    share of the bound (bound ms / ms) at least 0.5;
 6. K4 (``mvbs_partials``) the same way for the partials;
-7. the survey end to end: three synthetic EK60 files (5 channels,
+7. the binning programs (``binning``) no survey path runs, on file A's grid
+   at K3's shape (5 x 5,000 x 4,000 float32 Sv, 20 m x 20 s):
+   ``binned_sum_partials``, ``binned_mean_linear``, ``binned_sum_raw``,
+   ``blocked_banded_segment_sum`` (G from ``choose_block_g``) and
+   ``binned_mean_1d``, each on the card against ``device="cpu"`` over the
+   first 500 pings (counts exact, sums rtol 1e-6, identical NaN masks) and
+   timed at the full shape with its byte bound (``torch.segment_reduce`` timed
+   beside the blocked sum); then ``sv_mvbs_window_partials_uniform`` on one
+   chunk with ``block_g=G`` and ``block_g=0``: one K1 launch each, counts
+   equal and sums bit-identical;
+8. the survey end to end: three synthetic EK60 files (5 channels,
    18-200 kHz, 4,000 samples a ping; two of 10,000 pings, one of 5,000 whose
    sound speed varies by ping, so it takes K2) through
    ``run_survey_mvbs_from_raw`` on the card; the K1/K2 launch counters must
    equal the chunks each path took, and the MVBS must agree with the same
    call on the CPU (plain twins) within 1e-4 dB with identical NaN masks
    and coordinates;
-8. the Sv grids end to end on file A: ``open_raw`` -> ``compute_Sv`` on the
+9. the Sv grids end to end on file A: ``open_raw`` -> ``compute_Sv`` on the
    card -> ``compute_MVBS`` (20 m x 20 s) and ``compute_NASC`` (depth from
    ``consolidate.add_depth`` with the Platform vertical offsets, and a
    synthetic track), each against the same call on the CPU (1e-4 dB, NASC
@@ -52,7 +62,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    calibration inputs and compute_MVBS's grid: K3's Sv equals compute_Sv's
    (rtol/atol 1e-5, same NaN mask), its MVBS equals compute_MVBS's within
    1e-4 dB, K4's MVBS equals K3's within 1e-3 dB, one launch each;
-9. the Sv-store surveys: files A, B and C through open_raw -> compute_Sv
+10. the Sv-store surveys: files A, B and C through open_raw -> compute_Sv
    (card) -> add_depth -> track -> an uncompressed zarr store each, then
    ``run_survey_mvbs`` (20 m x 20 s) and ``run_survey_nasc`` (10 m x 0.5
    nmi) over the three stores on the card and on the CPU: MVBS within 1e-4
@@ -65,7 +75,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    route sums in float64) on the card each equal a host float64 numpy
    bincount of C's Sv (1e-4 dB, identical NaN masks); stage seconds of every
    run;
-10. masks (``masks``): noise injected into A's and C's stores as
+11. masks (``masks``): noise injected into A's and C's stores as
    tests/test_survey_clean.py does (impulse pings, transient blobs,
    attenuated runs); ``clean.mask_impulse_noise`` / ``mask_transient_noise``
    / ``mask_attenuated_signal`` at the JAX package's defaults on all of A on
@@ -86,7 +96,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    an extra 2,000-ping file; and the broadband freq-diff leg, chunked and
    fused, on a two-FM-channel EK80 file of 1,000 pings at the ek80 phase's
    width;
-11. EK80 (``ek80``): two files of tests/synth_ek80.py (70 kHz FM, 120 kHz
+12. EK80 (``ek80``): two files of tests/synth_ek80.py (70 kHz FM, 120 kHz
    CW complex, 38 kHz GPT power; 2,000 pings x 8,192 samples x 4 sectors
    each, consecutive in time): ``open_raw`` (seconds, each complex
    channel's replica length); ``compute_Sv`` on file A in BB, CW complex
@@ -104,7 +114,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    the last range bin, tests/test_survey.py:536-538), K1 + K2 launched
    once per power-mode chunk, nothing launched on cpu; walls, stage
    seconds and pings/s of every run;
-12. AZFP and the other instruments (``azfp``): three hourly files of a
+13. AZFP and the other instruments (``azfp``): three hourly files of a
    four-frequency AZFP (38/125/200/455 kHz, 1,000/1,000/800/600 bins, 1 Hz,
    3,600 pings each; the script's own writer of tests/synth_azfp.py's
    header): ``open_raw`` and ``compute_Sv`` on one file, card and CPU
@@ -122,7 +132,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    channels) on A's first 2,000 pings, equal on the card to the same
    parameters given explicitly and within 1e-4 dB of the CPU; ``open_raw``
    of one tests/test_ad2cp.py file;
-13. the multi-file cruise (``cruise``): ``run_survey_mvbs_from_raw`` over
+14. the multi-file cruise (``cruise``): ``run_survey_mvbs_from_raw`` over
    the survey files A, B, C with ``workers=3`` (a spawned pool decodes one
    file a process and never touches the card), bit-identical to
    ``workers=0, prefetch=False`` on the card with the same K1 / K2 launches,
@@ -141,7 +151,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    is written and holds every host-side K1 launch of the survey, and its
    device kernel events are counted by name with the card's busy share of
    the traced window (none found is printed, not a failure);
-14. multi-device surveys (``mesh``), the port of
+15. multi-device surveys (``mesh``), the port of
    __graft_entry__.py::dryrun_multichip on ``make_mesh(4,
    devices=["cuda:0"] * 4)``, four blocks of this one card (it prints
    ``distinct_devices=1``): the EK60 survey over A, B, C on a (ping 4,
@@ -149,10 +159,16 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    1e-4 dB, NaN masks and coordinates identical, the reruns bit-identical,
    K1 / K2 launches exactly 4 x the one-device launches, pings/s of each);
    file A on the card's mesh against the same mesh on the CPU (1e-4 dB);
+   ``freq_diff`` over A and C on the (4, 1) mesh against one device (1e-5
+   dB, bins excused only where a sample sits within 1e-4 dB of the
+   criterion);
    ``run_survey_mvbs`` over the dry run's Sv stores (6 channels, 40,000 +
    40,000 + 21,056 pings, R = 64, chunks of 4,096) on (ping 2, channel 2)
    against one device within 1e-6 dB, and ``run_survey_nasc`` over its NASC
-   files with an impulse-noise mask (rtol 1e-5, atol 1e-8); the EK80
+   files with an impulse-noise mask (rtol 1e-5, atol 1e-8), and
+   ``run_survey_mvbs`` over the Sv stores with impulse and attenuated
+   masks on echo_range against one device (1e-6 dB, identical NaN masks;
+   each leg's wall and K1-K4 launches printed); the EK80
    broadband surveys (three two-FM-channel files, chunked; two-epoch CW and
    BB files) against one device within 1e-4 dB, and ``device_fused=True``
    with the mesh (a warning, then the chunked path, bit-identical to it);
@@ -161,7 +177,7 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    one-device step, ``sharded_mvbs_step_closed`` and K1 / K2 through
    ``sharded_mvbs_partials_closed`` (counts exact, sums rtol 1e-5), each
    kernel's launches counted;
-15. print the matched filter's and the masks' device programs (plain
+16. print the matched filter's and the masks' device programs (plain
    PyTorch, not a Pallas kernel's port) with launches and timings, then the
    kernel table as one JSON line
    (launches on the main paths, the survey's, the ek80 power leg's, the
@@ -220,8 +236,8 @@ FUSED_VS_CHUNKED_DB, FUSED_LAST_BIN_DB = 5e-3, 0.2  # tests/test_survey.py:536-5
 # checks and the masked Sv-store surveys: C's pooling runs in float64 and
 # its CPU reference takes tens of ms a ping of 5 x 4,000 samples, so C
 # takes a shorter head
-MASK_HEAD = {"A": 1000, "C": 300}
-MASK_SURVEY_PINGS = {"A": 2000, "C": 300}
+MASK_HEAD = {"A": 500, "C": 150}
+MASK_SURVEY_PINGS = {"A": 1000, "C": 150}
 MASK_RAW_PINGS = 2000  # file D, the raw noise-mask route
 FD_BB_PINGS = 1000  # file E, two FM channels, the broadband freq-diff leg
 FD_EQ = "38kHz - 18kHz > 3.0dB"  # tests/test_survey_freqdiff.py:64
@@ -270,6 +286,19 @@ MESH_NASC_PINGS = (16_000, 8_192)
 MESH_NASC_RTOL, MESH_NASC_ATOL = 1e-5, 1e-8  # __graft_entry__.py:352-358
 MESH_BB_PINGS = (4096, 4096, 2048)
 MESH_EPOCH_PINGS = 512  # a filter epoch of the two-epoch files
+# the raw freq-diff mesh leg: files A and C (K1's and K2's geometry); the
+# Sv-store noise-mask leg: the masks of tests/test_torch_survey_masks.py on
+# echo_range (the dry-run stores carry no depth)
+MESH_FD_DB = 1e-5
+MESH_NOISE_MASKS = {
+    "impulse": dict(depth_bin="4m", num_side_pings=2, impulse_noise_threshold="10.0dB",
+                    range_var="echo_range"),
+    "attenuated": dict(upper_limit_sl="10.0m", lower_limit_sl="30.0m", num_side_pings=3,
+                       attenuation_signal_threshold="5.0dB", range_var="echo_range"),
+}
+# the binning phase: the public binning names on the card against the CPU
+# over a head of pings (counts exact, sums rtol 1e-6)
+BINNING_HEAD, BINNING_RTOL = 500, 1e-6
 # H100 SXM peaks at the full 700 W (NVIDIA's data sheet): HBM3 bytes/s and
 # float32 operations/s outside the tensor cores.  The latter counts an FMA
 # as two: the card issues half as many instructions, 128 lanes a clock per
@@ -486,6 +515,133 @@ def fused_phase(name, with_sv, seed):
     if bound["bound_ms"] / ms < MIN_SHARE_OF_BOUND:
         raise AssertionError(f"{name}: {ms:.4f} ms is under half its bound's speed")
     return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None}
+
+
+def binning_inputs(seed):
+    """File A's geometry at the kernel phase's shape: Sv float32 [C, P, R]
+    (normal about -70 dB, 8 dB wide, sparse NaNs), its echo_range on A's
+    uniform 0.18944 m grid, 20 m range edges, the ping bounds of 20 s bins
+    of 1 Hz pings, and a latitude track with a few NaN fixes."""
+    rng = np.random.default_rng(seed)
+    sv = rng.normal(-70.0, 8.0, (C, P, R)).astype("f4")
+    sv[rng.random((C, P, R), dtype=np.float32) < 1e-4] = np.nan
+    dr = np.float32(256e-6 * 1480.0 / 2.0)
+    er = np.broadcast_to(np.arange(R, dtype="f4") * dr, (C, P, R)).copy()
+    r_edges = np.arange(0, R * float(dr) + RANGE_BIN_M, RANGE_BIN_M).astype("f4")
+    ids = ((7.0 + np.arange(P)) // PING_BIN_S).astype("i8")
+    x_idx = ids - ids[0]
+    lat = 45.0 + np.cumsum(rng.normal(0.0, 1e-5, P))
+    lat[rng.random(P) < 0.01] = np.nan
+    # linear Sv (0 for NaN) made once on the host, so that the raw and
+    # blocked sums take the same values on both devices (the card's pow
+    # differs from the CPU's by up to ~1e-6 relative at these exponents)
+    with np.errstate(invalid="ignore"):
+        lin = np.nan_to_num(10.0 ** (sv.astype("f8") / 10.0), nan=0.0).astype("f4")
+    return sv, er, r_edges, x_idx, lat, dr, lin
+
+
+def binning_phase():
+    """The public binning names of ``ops/binning.py`` that no survey path
+    runs, on the card against ``device="cpu"`` on a head of pings and timed
+    at the full shape; then ``sv_mvbs_window_partials_uniform(block_g=G)``
+    on one chunk: K1 whatever ``block_g`` is.  Returns (device programs,
+    K1 launches)."""
+    from echopype_torch.device import resolve_device
+    from echopype_torch.ops import binning as tb
+    from echopype_torch.ops import window_partials as wp
+    from echopype_torch.parallel import pipeline as tp
+
+    sv, er, r_edges, x_idx, lat, dr, lin_np = binning_inputs(seed=31)
+    n_x, n_r = int(x_idx[-1]) + 1, len(r_edges) - 1
+    bounds = tp.closed_bounds_k0_np(np.full(C, dr, "f4"), np.full(C, 2 * dr, "f4"), r_edges,
+                                    R)[0]
+    G = tb.choose_block_g(bounds, R)
+    dev = resolve_device("cuda")
+    checks, programs = {}, {}
+
+    def ops_on(device, pings):
+        x_b = tb.x_bounds_np(x_idx[:pings], np.arange(n_x + 1))
+
+        def t(a):  # the head of a [C, P, R] array, on ``device``
+            return torch.from_numpy(np.ascontiguousarray(a[..., :pings, :])).to(device)
+
+        lin = t(lin_np)
+        return {
+            "binned_sum_partials": (tb.binned_sum_partials,
+                                    (t(sv), t(er), torch.from_numpy(r_edges).to(device), x_b)),
+            "binned_mean_linear": (tb.binned_mean_linear,
+                                   (t(sv), t(er), torch.from_numpy(r_edges).to(device), x_b)),
+            "binned_sum_raw": (tb.binned_sum_raw,
+                               (lin, t(er), torch.from_numpy(r_edges).to(device), x_b)),
+            "blocked_banded_segment_sum": (tb.blocked_banded_segment_sum,
+                                           (lin, torch.from_numpy(bounds).to(device), n_r, G)),
+            "binned_mean_1d": (tb.binned_mean_1d, (torch.from_numpy(lat[:pings]).to(device),
+                                                   torch.from_numpy(x_idx[:pings]).to(device),
+                                                   n_x)),
+        }
+
+    head = {k: fn(*a) for k, (fn, a) in ops_on(dev, BINNING_HEAD).items()}
+    ref = {k: fn(*a) for k, (fn, a) in ops_on(torch.device("cpu"), BINNING_HEAD).items()}
+    errs = {}
+    for name in head:
+        got = [t.cpu().double().numpy() for t in (head[name] if isinstance(head[name], tuple)
+                                                  else (head[name],))]
+        want = [t.double().numpy() for t in (ref[name] if isinstance(ref[name], tuple)
+                                             else (ref[name],))]
+        if name == "binned_mean_linear":  # dB: rtol 1e-6 of the linear mean
+            got, want = [10.0 ** (g / 10.0) for g in got], [10.0 ** (w / 10.0) for w in want]
+        sums, counts = (got[0], want[0]), list(zip(got[1:], want[1:]))
+        same_nan = all(np.array_equal(np.isnan(a), np.isnan(b)) for a, b in (sums, *counts))
+        ok = np.isfinite(sums[1]) & (sums[1] != 0)
+        errs[name] = float(np.max(np.abs(sums[0][ok] / sums[1][ok] - 1.0))) if ok.any() else 0.0
+        checks[f"{name} counts exact"] = all(np.array_equal(a, b) for a, b in counts)
+        checks[f"{name} cuda vs cpu"] = same_nan and ok.any() and errs[name] <= BINNING_RTOL
+    del head, ref
+
+    full = ops_on(dev, P)
+    # the byte bound alone: these are plain PyTorch programs, not kernels
+    out_bytes = {"binned_sum_partials": 3 * 8 * C * n_x * n_r,
+                 "binned_mean_linear": 8 * C * n_x * n_r, "binned_sum_raw": 8 * C * n_x * n_r,
+                 "blocked_banded_segment_sum": 4 * C * P * n_r, "binned_mean_1d": 8 * n_x}
+    lin_full, bounds_t = full["blocked_banded_segment_sum"][1][:2]
+    b64 = bounds_t.long()
+    lengths = torch.cat([b64[:, :1], torch.diff(b64, dim=1), R - b64[:, -1:]], dim=1)
+    lengths = lengths[:, None, :].expand(C, P, n_r + 2).contiguous()
+
+    def seg():  # the library call: one segment sum per bin, less the two margins
+        return torch.segment_reduce(lin_full, "sum", lengths=lengths, axis=2)[:, :, 1:-1]
+
+    lib_err = float((seg().double() / full["blocked_banded_segment_sum"][0](
+        *full["blocked_banded_segment_sum"][1]).double() - 1.0).abs().nan_to_num(0.0).max())
+    library = {"blocked_banded_segment_sum": cuda_ms(seg)}
+    for name, (fn, args) in full.items():  # launches: no survey path runs them
+        in_bytes = nbytes(*[a for a in args if isinstance(a, torch.Tensor)])
+        ms = cuda_ms(lambda: fn(*args))
+        programs[name] = {"ms": ms, "bytes": in_bytes + out_bytes[name],
+                          **bound_ms(in_bytes + out_bytes[name], 0),
+                          "library_ms": library.get(name), "launches": 0}
+    torch.cuda.synchronize()
+    del full, lin_full, bounds_t, lengths
+
+    # the uniform window step with block_g: K1 both ways, one launch each
+    args = chunk_inputs(seed=32, vary_dr=False)
+    W = args[-1]
+    runs, k1 = {}, {}
+    for g in (0, G):
+        wp.reset_launches()
+        runs[g] = tp.sv_mvbs_window_partials_uniform(*args[:8], W, len(args[7]) - 1, g)
+        torch.cuda.synchronize()
+        k1[g] = wp.LAUNCHES["window_partials_uniform"]
+    checks["block_g counts exact"] = torch.equal(runs[0][1], runs[G][1])
+    checks["block_g sums bit-identical"] = torch.equal(runs[0][0], runs[G][0])
+    checks["block_g one K1 launch each"] = k1 == {0: 1, G: 1}
+    say("binning", card_shape=[C, P, R], head_pings=BINNING_HEAD, G=G, n_x=n_x, n_r=n_r,
+        cuda_vs_cpu_rel=json.dumps(errs), rtol=BINNING_RTOL,
+        block_g_k1_launches=json.dumps(k1), segment_reduce_rel=lib_err)
+    failed = [k for k, v in checks.items() if not v]
+    if failed:
+        raise AssertionError(f"binning phase: {failed}")
+    return programs, sum(k1.values())
 
 
 def sv_grid_step_inputs(ed, ds_Sv, range_bin_m=RANGE_BIN_M, ping_time_bin=f"{PING_BIN_S}s"):
@@ -2094,14 +2250,16 @@ def _db_close(a, b, atol, var="Sv"):
     return err, same and coords and err <= atol
 
 
-def mesh_phase(files, e2e, smi):
+def mesh_phase(files, stores, e2e, smi):
     """Multi-device surveys on a mesh of ``MESH_SHARDS`` blocks of this one
     card (``make_mesh(..., devices=["cuda:0"] * 4)``), the port of
-    __graft_entry__.py::dryrun_multichip: the EK60 raw survey, the Sv-store
-    surveys, the EK80 broadband surveys and the survey steps, each against
+    __graft_entry__.py::dryrun_multichip: the EK60 raw survey (also with
+    ``freq_diff`` over A and C), the Sv-store surveys (also with noise
+    masks), the EK80 broadband surveys and the survey steps, each against
     one device; the survey on the card against the same mesh on the CPU;
-    reruns bit-identical.  ``e2e`` is the one-device survey of A, B, C:
-    (MVBS, K1/K2 launches, wall)."""
+    reruns bit-identical.  ``stores`` are the Sv stores of A, B, C (the
+    freq-diff margins); ``e2e`` is the one-device survey of A, B, C: (MVBS,
+    K1/K2 launches, wall)."""
     import collections
     import logging
 
@@ -2111,6 +2269,7 @@ def mesh_phase(files, e2e, smi):
     from echopype_torch.parallel import make_mesh
     from echopype_torch.parallel import pipeline as tp
     from echopype_torch.parallel import survey as ts
+    from echopype_torch.utils.io import open_source
     from echopype_torch.utils.profiling import StageTimer
 
     checks, walls, launches = {}, {}, collections.Counter()
@@ -2120,15 +2279,18 @@ def mesh_phase(files, e2e, smi):
         distinct_devices=len({str(d) for d in mesh.devices.flat}))
 
     def survey(tag, fn, srcs, **kw):
-        """One survey, timed; its K1-K4 launches read just after."""
+        """One survey, timed; its K1-K4 and freq-diff step launches read
+        just after."""
         wp.reset_launches()
         sbp.reset_launches()
+        tp.LAUNCHES["freqdiff_step"] = 0
         timer = StageTimer()
         t0 = time.perf_counter()
         out = fn(srcs, timer=timer, **kw)
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
-        got = {k: v for k, v in (*wp.LAUNCHES.items(), *sbp.LAUNCHES.items()) if v}
+        got = {k: v for k, v in (*wp.LAUNCHES.items(), *sbp.LAUNCHES.items(),
+                                 *tp.LAUNCHES.items()) if v}
         launches.update(got)
         return out, got, timer.report(log=False)
 
@@ -2167,6 +2329,28 @@ def mesh_phase(files, e2e, smi):
             {t: round(walls[t], 3) for t in ("A_mesh_cuda", "A_mesh_cpu")}))
     del card, cpu
 
+    # (b2) the raw freq-diff leg over A and C, the mesh against one device:
+    # bins over the limit are excused only where a sample sits within
+    # MASK_MARGIN_DB of the criterion
+    fd_files, fd_runs, fd_launches = [files[0], files[2]], {}, {}
+    for tag, mesh_kw in (("fd_one", {}), ("fd_mesh", {"mesh": mesh})):
+        fd_runs[tag], fd_launches[tag], _ = survey(tag, et.run_survey_mvbs_from_raw, fd_files,
+                                                   freq_diff=FD_EQ, **mesh_kw, **kw)
+    g, w = (np.asarray(fd_runs[t]["Sv"].values) for t in ("fd_mesh", "fd_one"))
+    bad = _bad_bins(g, w, MESH_FD_DB)
+    excused = _margin_excused(bad, [open_source(stores[i], "dataset") for i in (0, 2)]
+                              if bad.any() else [], _fd_margin(1, 0, 3.0), MASK_MARGIN_DB,
+                              fd_runs["fd_one"])
+    fd_err, fd_nan, fd_exc = _cmp_excused(g, w, excused)
+    checks["raw freq_diff mesh vs one device"] = (
+        fd_nan and fd_err <= MESH_FD_DB and np.isfinite(g).any() and _same_coords(
+            fd_runs["fd_mesh"], fd_runs["fd_one"], ("channel", "ping_time", "echo_range")))
+    say("mesh_raw_freq_diff", files=2, pings=E2E_PINGS[0] + E2E_PINGS[2], eq=repr(FD_EQ),
+        max_abs_dB=fd_err, limit_dB=MESH_FD_DB, bins_over_limit=int(bad.sum()),
+        bins_excused=fd_exc, same_nan=fd_nan, launches=json.dumps(fd_launches),
+        wall_s=json.dumps({t: round(walls[t], 3) for t in fd_runs}))
+    del fd_runs, g, w
+
     # (c) the Sv-store surveys on (ping 2, channel 2)
     mesh22 = make_mesh(MESH_SHARDS, channel_axis=2, devices=["cuda:0"] * MESH_SHARDS)
     svs = mesh_sv_datasets()
@@ -2175,7 +2359,20 @@ def mesh_phase(files, e2e, smi):
     sv_mesh, _, _ = survey("sv_mesh", et.run_survey_mvbs, svs, mesh=mesh22, **skw)
     sv_err, checks["Sv-store MVBS mesh vs one device"] = _db_close(sv_mesh, sv_one, MESH_SV_DB)
     checks["Sv-store grid >= 1e5 pings"] = np.shape(sv_mesh["Sv"].values)[1] >= 1264
-    del svs, sv_one, sv_mesh
+    # with noise masks (host masks a chunk, then the binning per block)
+    masked, nm_launches = {}, {}
+    for tag, mesh_kw in (("sv_masks_one", {}), ("sv_masks_mesh", {"mesh": mesh22})):
+        masked[tag], nm_launches[tag], _ = survey(tag, et.run_survey_mvbs, svs,
+                                                  noise_masks=MESH_NOISE_MASKS, **mesh_kw, **skw)
+    nm_err, checks["Sv-store noise masks mesh vs one device"] = _db_close(
+        masked["sv_masks_mesh"], masked["sv_masks_one"], MESH_SV_DB)
+    nm_grid = [np.isnan(np.asarray(x["Sv"].values)) for x in (masked["sv_masks_one"], sv_one)]
+    checks["Sv-store noise masks flag bins"] = bool((nm_grid[0] & ~nm_grid[1]).any())
+    say("mesh_sv_noise_masks", mesh=json.dumps(mesh22.shape), pings=sum(MESH_SV_PINGS),
+        masks=json.dumps(sorted(MESH_NOISE_MASKS)), max_abs_dB=nm_err, limit_dB=MESH_SV_DB,
+        bins_masked=int((nm_grid[0] & ~nm_grid[1]).sum()), launches=json.dumps(nm_launches),
+        wall_s=json.dumps({t: round(walls[t], 3) for t in masked}))
+    del svs, sv_one, sv_mesh, masked, nm_grid
     nsv = mesh_nasc_datasets()
     nkw = dict(range_bin="5m", dist_bin="0.1nmi", chunk_pings=4096, noise_masks={
         "impulse": dict(depth_bin="2m", num_side_pings=2, impulse_noise_threshold="10.0dB",
@@ -2359,6 +2556,8 @@ def main():
     k3 = fused_phase("K3", with_sv=True, seed=3)
     k4 = fused_phase("K4", with_sv=False, seed=4)
     torch.cuda.empty_cache()
+    binning_programs, binning_k1 = binning_phase()
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     files = write_files()
@@ -2396,7 +2595,7 @@ def main():
         torch.cuda.empty_cache()
         cruise_launches = cruise_phase(files, azfp_files, azfp_xml, smi)
         torch.cuda.empty_cache()
-        mesh_launches = mesh_phase(files, (mvbs, one_device, wall), smi)
+        mesh_launches = mesh_phase(files, stores, (mvbs, one_device, wall), smi)
     finally:
         shutil.rmtree(DATA_DIR, ignore_errors=True)
 
@@ -2428,12 +2627,13 @@ def main():
     # is not in the kernels line; its row of PERF.md's second table
     say("device_programs", matched_filter=json.dumps(matched_filter))
     say("device_programs", masks=json.dumps(mask_programs))
+    say("device_programs", binning=json.dumps(binning_programs))
     src = "echopype_torch/csrc/window_partials.cu"
     src_fused = "echopype_torch/csrc/sv_bin_partials.cu"
     table = [
         {"name": "window_partials_uniform", "route": "cuda", "source": src,
          "replaces": "echopype_tpu/ops/pallas_window.py:174",
-         "launches": launches["window_partials_uniform"]
+         "launches": launches["window_partials_uniform"] + binning_k1
          + ek80_launches["window_partials_uniform"]
          + cruise_launches.get("window_partials_uniform", 0)
          + mesh_launches.get("window_partials_uniform", 0), **k1},

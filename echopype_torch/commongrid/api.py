@@ -31,7 +31,7 @@ from .utils import (
     ping_time_bin_edges,
 )
 
-__all__ = ["compute_MVBS", "compute_MVBS_index_binning", "compute_NASC"]
+__all__ = ["compute_MVBS", "compute_MVBS_index_binning", "compute_NASC", "regrid"]
 
 
 def _set_MVBS_attrs(ds):
@@ -351,3 +351,8 @@ def compute_NASC(
     prov["processing_function"] = "commongrid.compute_NASC"
     ds_NASC.attrs.update(prov)
     return insert_input_processing_level(ds_NASC, input_ds=ds_Sv)
+
+
+def regrid():
+    """Placeholder mirroring the reference's stub (commongrid/api.py:419)."""
+    return 1

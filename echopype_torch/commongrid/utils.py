@@ -67,8 +67,9 @@ _TIME_UNIT_NS = {
     "s": 1_000_000_000,
     "min": 60_000_000_000,
     "h": 3_600_000_000_000,
+    "D": 86_400_000_000_000,  # a fixed 24 h, as pandas' Day tick
 }
-_DAY_NS = 86_400_000_000_000
+_DAY_NS = _TIME_UNIT_NS["D"]
 
 
 def _parse_x_bin(x_bin: str, x_label="range_bin") -> float:
@@ -97,8 +98,8 @@ def _setup_and_validate(ds_Sv: Dataset, range_var: str, range_bin: str, closed: 
 
 
 def _time_bin_ns(ping_time_bin: str) -> int:
-    """'20s' / '0.5min' / '2h' -> bin length in integer nanoseconds."""
-    m = re.fullmatch(r"\s*(\d*\.?\d*)\s*(ns|us|ms|s|min|h)\s*", ping_time_bin)
+    """'20s' / '0.5min' / '2h' / '1D' -> bin length in integer nanoseconds."""
+    m = re.fullmatch(r"\s*(\d*\.?\d*)\s*(ns|us|ms|s|min|h|D)\s*", ping_time_bin)
     if m is None:
         raise ValueError(
             f"ping_time_bin {ping_time_bin!r}: only fixed-length bins "
@@ -205,6 +206,12 @@ def get_reduced_positions(ds_Sv, ds_X, x_dim, x_idx, n_x):
                 vals = sums / np.where(cnts > 0, cnts, np.nan)
             ds_X[var] = ((x_dim,), vals, dict(ds_Sv[var].attrs))
     return ds_X
+
+
+def ping_time_bin_parsing_and_conversion(ping_time_bin: str):
+    """Reference-named alias of parse_time_bin_to_value_unit
+    (reference: commongrid/utils.py:654-698)."""
+    return parse_time_bin_to_value_unit(ping_time_bin)
 
 
 def assign_actual_range(ds_MVBS: Dataset) -> Dataset:

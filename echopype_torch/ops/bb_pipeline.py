@@ -12,6 +12,13 @@ calibrate_ek.py:456-659): the matched filter (``ops/matched_filter.py``),
 prx from the beam-sector mean with impedance scaling, Sv from the TVG'd
 affine range.  Sample validity is the contiguous [0, valid_len) run; the
 first sample past the TVG shift, ``k0``, comes from the host in float64.
+
+``precision`` takes the JAX package's values ``None`` and ``"HIGHEST"``,
+which here mean the same: the matched filter's products run in float32
+with TF32 off, since no TF32 is allowed on the data path (about 1e-3 dB a
+bin).  ``"HIGH"`` and ``"DEFAULT"`` (reduced-precision products on the
+TPU) raise ``NotImplementedError``, any other value ``ValueError``, as
+``matched_filter.set_conv_precision`` refuses them.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import torch
 
 from ..device import resolve_device
 from .binning import binned_window_partials
-from .matched_filter import _leading_zeros, _toeplitz_conv
+from .matched_filter import _leading_zeros, _toeplitz_conv, set_conv_precision
 
 __all__ = ["bb_chunk_sv", "bb_chunk_window_partials"]
 
@@ -33,9 +40,11 @@ def _on(dev, a, dtype=torch.float32):
 
 
 def _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset, k0,
-                      valid_len, do_pc, block_t=0, device="cuda"):
+                      valid_len, do_pc, precision=None, block_t=0, device="cuda"):
     """Shared complex -> Sv body: returns (sv, er) float32 [P, R] on
     ``device``.  hr, hi: the flipped-conjugated replica (host arrays)."""
+    if precision is not None:
+        set_conv_precision(precision)  # "HIGHEST" passes, the rest raise
     dev = resolve_device(device)
     f = lambda a: _on(dev, a)  # noqa: E731
     bs_r, bs_i = f(bs_r), f(bs_i)
@@ -81,11 +90,11 @@ def _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, of
 
 
 def bb_chunk_sv(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset, k0,
-                valid_len, do_pc: bool, device="cuda"):
+                valid_len, do_pc: bool, precision=None, device="cuda"):
     """One channel's chunk complex -> (Sv, echo_range) float32 [P, R] on
     ``device``, without binning (for a cross-channel mask before the bins)."""
     return _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset,
-                             k0, valid_len, do_pc, device=device)
+                             k0, valid_len, do_pc, precision, device=device)
 
 
 def bb_chunk_window_partials(
@@ -102,13 +111,15 @@ def bb_chunk_window_partials(
     r_edges,             # f4 [n_r+1]
     n_x_window: int,
     do_pc: bool,
+    precision=None,            # None or "HIGHEST" (module docstring)
     uniform_er: bool = False,  # ping-invariant dr: the 0/1 matmul over the grid row
     block_t: int = 0,          # matched-filter Toeplitz block override
     device="cuda",
 ):
-    """Returns (sums, counts) float32 [n_x_window, n_r] on ``device``."""
+    """Returns (sums, counts) float64 [n_x_window, n_r] on ``device``
+    (:func:`binned_window_partials` adds the pings' range sums in float64)."""
     sv, er = _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset,
-                               k0, valid_len, do_pc, block_t=block_t, device=device)
+                               k0, valid_len, do_pc, precision, block_t=block_t, device=device)
     dev = sv.device
     sums, counts, _ = binned_window_partials(
         sv[None], er[None], _on(dev, r_edges), _on(dev, x_rel, torch.int32), n_x_window,

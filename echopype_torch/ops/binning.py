@@ -8,10 +8,11 @@ every ping bin is a contiguous run and reduces by a 0/1 matmul.
   reference's elementwise digitize, shipped as ``idx + 0.5`` against
   integer edges so the device compares exact values), and the ping chunk
   loop :func:`_windowed_accumulate`, whose window partials add up in
-  float64 on the host.
-* Device, plain torch: :func:`banded_x_reduce` (ping windows) and the range
-  bins, by one of two rules: on a ping-invariant grid a per-channel 0/1
-  matmul against the grid row (:func:`_uniform_bin_matmul`; the survey
+  float64 on the host.  :func:`choose_block_g` picks the block size of
+  :func:`blocked_banded_segment_sum` from the host's bin bounds.
+* Device, plain torch: :func:`_banded_x_reduce_xb` (ping windows) and the
+  range bins, by one of two rules: on a ping-invariant grid a per-channel
+  0/1 matmul against the grid row (:func:`_uniform_bin_matmul`; the survey
   streamers pass the row itself, ``*_grid``, ``*_row_sum``), on a grid that
   varies by ping a scatter-add of each sample into its own bin
   (:func:`_sample_bin_sums`).  Every bin sums only its own samples, and
@@ -20,6 +21,14 @@ every ping bin is a contiguous run and reduces by a 0/1 matmul.
   mesh's ping blocks then gives the one-device sums up to float64 rounding,
   where float32 window sums of other groupings differed by up to 2.2e-6 dB
   on a 101,056-ping survey.
+* The JAX package's other public names, on the same device rules:
+  :func:`banded_x_reduce` (window-relative ids), :func:`row_bin_bounds`,
+  :func:`blocked_banded_segment_sum`, :func:`binned_sum_partials`,
+  :func:`binned_sum_raw`, :func:`binned_mean_linear` (the last three on the
+  windowed routes above, with one window bin per ping bin) and
+  :func:`binned_mean_1d`.  No survey path of the port runs any of them:
+  the streamers and ``compute_MVBS`` / ``compute_NASC`` take the windowed
+  routes, and the uniform survey step takes K1 whatever its ``block_g``.
 """
 
 from __future__ import annotations
@@ -29,17 +38,24 @@ import warnings
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import no_tf32, resolve_device
 
 __all__ = [
     "banded_x_reduce",
     "bin_index_np",
+    "binned_mean_1d",
+    "binned_mean_linear",
+    "binned_sum_partials",
+    "binned_sum_raw",
     "binned_window_partials",
     "binned_window_partials_grid",
     "binned_window_row_sum",
     "binned_window_sum_raw",
+    "blocked_banded_segment_sum",
+    "choose_block_g",
     "er_is_uniform",
     "exact_bin_encode_np",
+    "row_bin_bounds",
     "windowed_partials_np",
     "windowed_sum_raw_np",
     "x_bounds_np",
@@ -67,6 +83,26 @@ def x_bounds_np(sorted_values: np.ndarray, edges: np.ndarray, closed: str = "lef
     """
     side = "left" if closed == "left" else "right"
     return np.searchsorted(sorted_values, edges, side=side).astype("i4")
+
+
+def choose_block_g(bounds: np.ndarray, n_valid: int, g_max: int = 64) -> int:
+    """Pick a static block size for :func:`blocked_banded_segment_sum`.
+
+    Valid G: no block of G samples may contain two distinct bin boundaries
+    (equivalently min over channels of min consecutive-bound spacing >= G;
+    boundary values clipped outside [0, n_valid] collapse and don't count).
+    Returns the largest power of two <= min spacing (capped at g_max), or 0
+    when none >= 8 exists — callers fall back to the plain banded matmul.
+    Host-side: ``bounds`` are the f64-exact per-channel bin bounds the
+    kernels reproduce on device (``_refine_bounds`` pins them to the grid).
+    """
+    b = np.clip(np.asarray(bounds, dtype="f8"), 0, n_valid)
+    d = np.diff(b, axis=-1)
+    d = d[d > 0]
+    if d.size == 0 or d.min() < 8:  # sub-8 spacing: 1 << log2(<1) would raise
+        return 0
+    g = 1 << int(np.floor(np.log2(d.min())))
+    return min(g, g_max)
 
 
 def er_is_uniform(er) -> bool:
@@ -196,7 +232,7 @@ def windowed_sum_raw_np(values, er, r_edges, x_bounds, closed="left", chunk_ping
 
 
 # ---------------------------------------------------------------- device side
-def banded_x_reduce(blocks, xb):
+def _banded_x_reduce_xb(blocks, xb):
     """Sum the ping axis of ``blocks`` [C, P, K] over the runs of ``xb``.
 
     xb: int [W+1] non-decreasing ping bounds; pings past ``xb[W]`` (padding
@@ -208,6 +244,19 @@ def banded_x_reduce(blocks, xb):
     p_ids = torch.arange(P, device=blocks.device)[:, None]
     mx = ((p_ids >= xb[None, :-1]) & (p_ids < xb[None, 1:])).to(blocks.dtype)
     return torch.einsum("cpk,pw->cwk", blocks, mx)
+
+
+def banded_x_reduce(blocks, x_rel, n_x_window: int):
+    """Reduce the ping axis of ``blocks`` [C, P, K] onto a local bin window.
+
+    x_rel: sorted int [P] window-relative bin ids; ids outside [0,
+    n_x_window) join no bin (park padded pings past the window).  Each
+    output bin is an independent sum over its own pings (the JAX package's
+    signature; :func:`_banded_x_reduce_xb` takes the window's ping bounds
+    instead).  Returns [C, n_x_window, K] in ``blocks``' dtype.
+    """
+    with no_tf32():
+        return _banded_x_reduce_xb(blocks, _x_rel_bounds(x_rel, n_x_window))
 
 
 def _x_rel_bounds(x_rel, n_x_window):
@@ -295,8 +344,8 @@ def _window_partials(sv_db, in_bin, range_sums, x_rel, n_x_window, skipna):
     n1 = range_sums(ok.to(lin.dtype))
     nan1 = torch.zeros_like(n1) if skipna else range_sums((isnan_sv & in_bin).to(lin.dtype))
     n_r = s1.shape[2]
-    stacked = banded_x_reduce(torch.cat([s1, n1, nan1], dim=2).double(),
-                              _x_rel_bounds(x_rel, n_x_window))
+    stacked = _banded_x_reduce_xb(torch.cat([s1, n1, nan1], dim=2).double(),
+                                  _x_rel_bounds(x_rel, n_x_window))
     return stacked[:, :, :n_r], stacked[:, :, n_r : 2 * n_r], stacked[:, :, 2 * n_r :]
 
 
@@ -323,7 +372,7 @@ def binned_window_sum_raw(values, er, r_edges, x_rel, n_x_window: int, closed: s
     float64 (the ping sums accumulate in float64)."""
     ok = ~torch.isnan(values) & ~torch.isnan(er)
     s1 = _range_bin_sums(er, r_edges, closed, uniform_er)(torch.where(ok, values, 0.0))
-    return banded_x_reduce(s1.double(), _x_rel_bounds(x_rel, n_x_window))
+    return _banded_x_reduce_xb(s1.double(), _x_rel_bounds(x_rel, n_x_window))
 
 
 def binned_window_partials_grid(sv_db, er_grid, r_edges, x_rel, n_x_window: int,
@@ -354,3 +403,106 @@ def binned_window_row_sum(values_row, er_row, r_edges, x_rel, n_x_window: int,
                                 r_edges, closed)[:, 0, :]
     ping_counts = torch.diff(_x_rel_bounds(x_rel, n_x_window)).to(s_row.dtype)
     return s_row[:, None, :] * ping_counts[None, :, None]
+
+
+# ----------------------------- the JAX package's other public binning names
+def row_bin_bounds(er, edges, closed: str = "left"):
+    """Per-row bin-boundary positions by binary search: int32 [C, P, n_edges].
+
+    er: [C, P, R] increasing along R; NaNs count as +inf, so they are
+    excluded only as a suffix of the row (the ragged-padding layout) or a
+    whole row, as in the JAX package.  A bin of ``closed="left"`` edges
+    holds the samples ``[bounds[b], bounds[b+1])`` of its row.  No path of
+    the port uses it: a grid that varies by ping bins each sample on its
+    own (:func:`_sample_bin_sums`), NaN ranges anywhere.
+    """
+    rows = torch.where(torch.isnan(er), torch.inf, er).contiguous()
+    e = edges.to(rows.dtype).expand(*rows.shape[:2], edges.shape[-1]).contiguous()
+    return torch.searchsorted(rows, e, side="left" if closed == "left" else "right").to(
+        torch.int32)
+
+
+def blocked_banded_segment_sum(vals, bounds, n_r: int, G: int):
+    """Contiguous-segment sums of ``vals``: float32 [C, P, n_r].
+
+    vals   : float32 [C, P, N] (already masked: out-of-segment samples are 0)
+    bounds : [C, n_r+1] integral segment boundaries in [0, N], sorted
+    G      : the block size from :func:`choose_block_g`; it must keep that
+             function's rule (no G-sample block holds two distinct
+             boundaries), else ``ValueError``.
+    Segment b sums ``vals[..., bounds[b]:bounds[b+1]]``.
+
+    The JAX package splits each bin into float32 blocks of G samples so
+    that its matrix unit keeps float32 precision.  Here each bin is one
+    segment sum, whatever G: a float64 product against the 0/1 bin
+    selectors, rounded once to float32.  Integer-valued inputs sum
+    exactly, a quiet bin after loud samples keeps its precision, and the
+    card and the CPU give the same float32 sums.
+    """
+    C, P, N = vals.shape
+    b = bounds.to(vals.device).clamp(0, N)
+    d = torch.diff(b, dim=-1)
+    if G < 1 or bool(((d > 0) & (d < G)).any()):
+        raise ValueError(f"G={G}: a block of G samples holds two bin boundaries")
+    k = torch.arange(N, device=vals.device)[None, :, None]
+    sel = ((k >= b[:, None, :-1]) & (k < b[:, None, 1:])).to(torch.float64)  # [C, N, n_r]
+    return torch.bmm(vals.double(), sel).to(torch.float32)
+
+
+def _window_ids_on(x_bounds, P: int, dev):
+    xb = x_bounds.cpu().numpy() if isinstance(x_bounds, torch.Tensor) else x_bounds
+    return torch.from_numpy(_window_ids(xb, P)).to(dev)
+
+
+def binned_sum_partials(sv_db, er, r_edges, x_bounds, skipna: bool = True,
+                        closed: str = "left"):
+    """Linear-domain partial sums per (channel, x_bin, range_bin).
+
+    sv_db, er [C, P, R] tensors (er increasing along R); r_edges [n_r+1];
+    x_bounds [n_x+1] ping positions of the x-bin boundaries (host array or
+    tensor).  :func:`binned_window_partials` with one window bin per x bin
+    (pings outside ``[x_bounds[0], x_bounds[-1])`` join none), so every
+    range and ping bin sums only its own samples.  Returns (sums, counts,
+    nan_counts) float64 [C, n_x, n_r] (the JAX package's are float32, from
+    prefix sums that lose a quiet bin after loud samples); with
+    ``skipna=False``, ``nan_counts`` counts the NaN Sv at valid ranges.
+    """
+    x_rel = _window_ids_on(x_bounds, sv_db.shape[1], sv_db.device)
+    return binned_window_partials(sv_db, er, r_edges, x_rel, len(x_bounds) - 1, skipna, closed)
+
+
+def binned_mean_linear(sv_db, er, r_edges, x_bounds, skipna: bool = True,
+                       closed: str = "left"):
+    """Mean of linear Sv per bin, back in dB: float64 [C, n_x, n_r].
+
+    :func:`binned_sum_partials`' sums over its counts; a bin with no sample,
+    or with ``skipna=False`` any NaN Sv, is NaN.
+    """
+    sums, counts, nan_counts = binned_sum_partials(sv_db, er, r_edges, x_bounds, skipna, closed)
+    mean = sums / torch.where(counts > 0, counts, 1.0)
+    good = (counts > 0) & (nan_counts == 0)
+    return torch.where(good, 10.0 * torch.log10(mean), torch.nan)
+
+
+def binned_sum_raw(values, er, r_edges, x_bounds, closed: str = "left"):
+    """NaN-skipping raw sum per (channel, x_bin, range_bin): float64
+    [C, n_x, n_r], :func:`binned_window_sum_raw` with one window bin per x
+    bin (the JAX package's is float32)."""
+    x_rel = _window_ids_on(x_bounds, values.shape[1], values.device)
+    return binned_window_sum_raw(values, er, r_edges, x_rel, len(x_bounds) - 1, closed)
+
+
+def binned_mean_1d(values, x_idx, n_x: int):
+    """NaN-mean of a [P] tensor per x bin (latitude / longitude): float64
+    [n_x], NaN for a bin with no finite value.  ``x_idx`` [P] gives each
+    element's bin; elements outside [0, n_x) join none.  Sums and counts
+    accumulate in float64 by an accumulating ``index_put_`` (deterministic
+    on the card)."""
+    x_idx = x_idx.to(values.device, torch.int64)
+    ok = (x_idx >= 0) & (x_idx < n_x) & ~torch.isnan(values)
+    idx = (x_idx[ok],)
+    sums = torch.zeros(n_x, dtype=torch.float64, device=values.device)
+    sums.index_put_(idx, values[ok].double(), accumulate=True)
+    counts = torch.zeros_like(sums).index_put_(
+        idx, torch.ones(idx[0].shape, dtype=torch.float64, device=values.device), accumulate=True)
+    return torch.where(counts > 0, sums / torch.where(counts > 0, counts, 1.0), torch.nan)

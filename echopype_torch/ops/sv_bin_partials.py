@@ -40,7 +40,7 @@ import torch
 
 from ..device import resolve_device
 from ..utils.profiling import launch_span
-from .binning import banded_x_reduce
+from .binning import _banded_x_reduce_xb
 
 __all__ = [
     "LAUNCHES",
@@ -252,7 +252,7 @@ def fused_operands(power, dr, tvg_shift, absorption, offset, x_idx, r_edges, n_x
 
 
 def _reduce_pings(s1, n1, xb, n_r):
-    both = banded_x_reduce(torch.cat([s1, n1], dim=2), xb)
+    both = _banded_x_reduce_xb(torch.cat([s1, n1], dim=2), xb)
     return both[:, :, :n_r], both[:, :, n_r:]
 
 
@@ -264,7 +264,7 @@ def sv_mvbs_core_fused(power, dr, tvg_shift, absorption, offset, x_idx, r_edges,
     (itself a drop-in for ``parallel/pipeline.py::sv_mvbs_core_mxu``): same
     arguments (host arrays or tensors) plus ``device``.  Range bins follow
     each channel's first-ping ``dr``.  The ping axis is reduced outside the
-    kernel by :func:`~echopype_torch.ops.binning.banded_x_reduce` (an
+    kernel by :func:`~echopype_torch.ops.binning._banded_x_reduce_xb` (an
     independent float32 sum per ping bin) instead of the JAX wrapper's
     cumsum-gather-diff.  Returns (Sv [C, P, R], sums, counts [C, n_x, n_r])
     float32 tensors on ``device``.

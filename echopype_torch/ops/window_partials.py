@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import launch_span
-from .binning import banded_x_reduce
+from .binning import _banded_x_reduce_xb
 
 __all__ = [
     "LAUNCHES",
@@ -137,10 +137,10 @@ def window_partials_uniform_plain(power, sprd_row, rt2_row, absorption, offset,
     lin = _lin_kept(torch.exp(sv * LN10_OVER_10), power, lane, valid_len)
     s1 = torch.bmm(lin, _range_bin_matrix(bounds, R))  # [C, P, n_r]
     if not with_counts:
-        return banded_x_reduce(s1, xb)
+        return _banded_x_reduce_xb(s1, xb)
     # bounds are clipped to [k0, R], so only the valid length clips here
     n1 = torch.diff(torch.minimum(bounds[:, None, :], valid_len[:, :, None]), dim=2)
-    both = banded_x_reduce(torch.cat([s1, n1.to(torch.float32)], dim=2), xb)
+    both = _banded_x_reduce_xb(torch.cat([s1, n1.to(torch.float32)], dim=2), xb)
     return both[:, :, :n_r], both[:, :, n_r:]
 
 
@@ -164,7 +164,7 @@ def window_partials_plain(power, dr, tvg_shift, absorption, offset, k0, valid_le
         torch.maximum(bounds[:, None, :], k0[:, :, None]), valid_len[:, :, None]
     )
     n1 = torch.diff(clipped, dim=2).to(torch.float32)
-    both = banded_x_reduce(torch.cat([s1, n1], dim=2), xb)
+    both = _banded_x_reduce_xb(torch.cat([s1, n1], dim=2), xb)
     return both[:, :, :n_r], both[:, :, n_r:]
 
 

@@ -46,7 +46,7 @@ import torch
 
 from ..device import no_tf32, resolve_device
 from ..ops import binning
-from ..ops.binning import _prefix_gather_diff, banded_x_reduce
+from ..ops.binning import _banded_x_reduce_xb, _prefix_gather_diff
 from ..ops.sv_bin_partials import (
     LN10_OVER_10,
     _as_f32,
@@ -447,7 +447,7 @@ def sharded_mvbs_partials_closed(mesh, n_x_window: int, n_r: int, uniform: bool 
 
 def sv_mvbs_window_partials_uniform(
     power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r_edges,
-    n_x_window: int, n_r: int, with_counts: bool = True, device="cuda",
+    n_x_window: int, n_r: int, block_g: int = 0, with_counts: bool = True, device="cuda",
 ):
     """Window partials for per-channel uniform ``dr`` and TVG shift (K1).
 
@@ -456,6 +456,13 @@ def sv_mvbs_window_partials_uniform(
     (sums, counts) [C, n_x_window, n_r] float32 tensors on ``device``, or
     sums alone with ``with_counts=False`` (the survey takes its counts from
     :func:`closed_window_counts_np`).  Callers check uniformity.
+
+    ``block_g`` is the JAX package's positional parameter: there a
+    ``block_g > 0`` (``ops.binning.choose_block_g`` of the host's bin
+    bounds) swapped the TPU's band matmul for exact float32 block sums.
+    Here K1, or its plain twin on ``device="cpu"``, runs whatever
+    ``block_g`` is: it already sums each range bin on its own over the
+    host's bounds, so every value gives the same bits.
     """
     return sharded_mvbs_partials_closed(None, n_x_window, n_r, uniform=True,
                                         with_counts=with_counts, device=device)(
@@ -557,7 +564,7 @@ def sharded_mvbs_partials_freqdiff(mesh, window: int, n_r: int, ia: int, ib: int
         P = power.shape[1]
         with no_tf32():
             s1 = torch.bmm(torch.cat([lin, ok.to(torch.float32)], dim=1), m)  # [C, 2P, n_r]
-            both = banded_x_reduce(torch.cat([s1[:, :P], s1[:, P:]], dim=2), xb)
+            both = _banded_x_reduce_xb(torch.cat([s1[:, :P], s1[:, P:]], dim=2), xb)
         if dev.type == "cuda":
             LAUNCHES["freqdiff_step"] += 1
         return both[:, :, :n_r], both[:, :, n_r:]
@@ -719,7 +726,7 @@ def _closed_s1_n1(power, dr, tvg_shift, absorption, offset, valid_len, r_edges, 
 
 def _window_sums(s1, n1, x_idx, n_x, dev):
     """Ping-bin sums of per-ping partials [C, P, n_r]: an independent float32
-    sum per ping bin (``banded_x_reduce``), as the port's fused cores take
+    sum per ping bin (``_banded_x_reduce_xb``), as the port's fused cores take
     them.  The JAX package's cumsum-gather-diff here loses a quiet bin
     after loud pings at the survey's depth: its error moved MVBS by up to
     8.6e-4 dB between a mesh and one device at 5 x 5,000 x 4,000."""

@@ -200,7 +200,7 @@ def test_cuda_request_without_cuda_raises(raw_files):
 
 
 class TestHostPieces:
-    @pytest.mark.parametrize("freq", ["20s", "1min", "0.5min", "2h", "7s", "250ms"])
+    @pytest.mark.parametrize("freq", ["20s", "1min", "0.5min", "2h", "7s", "250ms", "1D", "2D"])
     @pytest.mark.parametrize("start", ["2020-01-01T00:00:03.250", "2019-12-31T23:59:58.9",
                                        "2021-06-15T13:47:31.000001"])
     def test_ping_time_bin_edges_match_pandas(self, freq, start):
@@ -213,7 +213,7 @@ class TestHostPieces:
         np.testing.assert_array_equal(ping_time_bin_edges(one, freq),
                                       ping_time_bin_edges_pd(one, freq))
 
-    @pytest.mark.parametrize("freq", ["1D", "1W", "MS", "20 parsecs", "0.3ns"])
+    @pytest.mark.parametrize("freq", ["1B", "1W", "MS", "20 parsecs", "0.3ns"])
     def test_unsupported_time_bins_raise(self, freq):
         with pytest.raises(ValueError):
             ping_time_bin_edges(np.array([T0]), freq)

@@ -181,6 +181,29 @@ def test_bb_chunk_window_partials_matches_jax(do_pc, uniform_er):
     assert (c_t.numpy() > 0).any()
 
 
+def test_bb_chunk_precision_by_position():
+    """The JAX parameter order: ``precision`` follows ``do_pc`` in both
+    functions.  ``"HIGHEST"`` by position equals ``None`` bit for bit (it
+    took the uniform-grid route before it had its own parameter); the
+    reduced TPU precisions raise, as ``set_conv_precision`` does."""
+    ops = _chunk_operands(4, vary_dr=True)
+    r_edges = np.arange(0, 300 * 0.0125 + 0.5, 0.5).astype("f4")
+    base = tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, device="cpu")
+    highest = tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, "HIGHEST", device="cpu")
+    for a, b in zip(base, highest):
+        assert torch.equal(a, b) and a.dtype == torch.float64
+    sv_ops = ops[:-1]
+    for a, b in zip(tbb.bb_chunk_sv(*sv_ops, True, device="cpu"),
+                    tbb.bb_chunk_sv(*sv_ops, True, "HIGHEST", device="cpu")):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for bad, err in (("HIGH", NotImplementedError), ("DEFAULT", NotImplementedError),
+                     ("float16", ValueError)):
+        with pytest.raises(err):
+            tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, bad, device="cpu")
+        with pytest.raises(err):
+            tbb.bb_chunk_sv(*sv_ops, True, bad, device="cpu")
+
+
 @pytest.mark.parametrize("do_pc", [True, False], ids=["bb", "cw"])
 def test_bb_chunk_sv_matches_jax(do_pc):
     ops = _chunk_operands(8)[:-1]

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from echopype_torch.ops import window_partials as wp
-from echopype_torch.ops.binning import banded_x_reduce
+from echopype_torch.ops.binning import _banded_x_reduce_xb, banded_x_reduce
 from echopype_torch.parallel import pipeline as tp
 from echopype_tpu.ops import binning as jb
 from echopype_tpu.ops.pallas_window import window_partials_pallas, window_partials_pallas_uniform
@@ -223,9 +223,11 @@ class TestHostHelpers:
         W = 6
         x_rel = np.sort(rng.integers(0, W + 2, 50)).astype("i4")  # some parked past W
         want = np.asarray(jb.banded_x_reduce(jnp.asarray(blocks), jnp.asarray(x_rel), W))
-        xb = np.searchsorted(x_rel, np.arange(W + 1), side="left")
-        got = banded_x_reduce(torch.from_numpy(blocks), torch.from_numpy(xb))
+        got = banded_x_reduce(torch.from_numpy(blocks), torch.from_numpy(x_rel), W)
         np.testing.assert_allclose(_np(got), want, rtol=1e-6, atol=1e-6)
+        # the window-bounds form the kernels' twins call gives the same bits
+        xb = np.searchsorted(x_rel, np.arange(W + 1), side="left")
+        assert torch.equal(_banded_x_reduce_xb(torch.from_numpy(blocks), torch.from_numpy(xb)), got)
 
 
 class TestDispatch:
