@@ -103,10 +103,21 @@ Phases (each prints one line; any failure raises, so the exit code is not 0):
    and CW power on the card, each against the same call on the CPU over
    the first 200 pings (1e-3 dB BB, 1e-4 dB otherwise, identical NaN
    masks) and BB against ``precision="float64"`` there (1e-3 dB, no NaN-mask
-   mismatch; p50 / p99 / max printed); the matched filter's matmul alone
-   per complex channel, float64 (compute_Sv's) and float32 (the fused
-   step's), CUDA events, median of 20, against its bound, with one
-   ``conv1d`` computing the same correlation timed beside it; then
+   mismatch; p50 / p99 / max printed), and BB there under
+   ``set_conv_precision("HIGH")`` and ``"DEFAULT"`` against the default
+   "HIGHEST" (HIGH within 0.004 dB for Sv within 40 dB of the channel's
+   peak, 0.02 dB within 60 dB, identical NaN masks; the precision restored
+   afterwards, also on failure); the matched filter's matmul alone per
+   complex channel, float64 (compute_Sv's), float32 (the fused step's) and
+   the bf16 split products HIGH and DEFAULT, CUDA events, median of 20,
+   against its bound, with one ``conv1d`` computing the same correlation
+   timed beside it (bf16 for DEFAULT, within bf16 output rounding; none for
+   HIGH), the split products also on the CPU over 256 lanes (2e-6 of
+   scale), their product alone against its plain version on the card, and
+   their power against the float64 product's in dB (HIGH within 0.004 dB
+   within 40 dB of the peak, and within 60 dB within 0.02 dB or, where the
+   bf16x3 arithmetic itself exceeds that, within 1e-3 dB of its plain
+   version's error on the card); then
    ``run_survey_mvbs_from_raw`` (5 m x 20 s, chunks of 1,000 pings) over
    both files in power mode, BB chunked and BB fused, and CW complex fused
    and chunked on A, each on cuda and cpu: within 1e-4 dB with identical
@@ -230,6 +241,21 @@ EK80_HEAD = 200  # pings of the cpu and float64 compute_Sv checks
 EK80_GRID = dict(range_bin="5m", ping_time_bin="20s", chunk_pings=1000)
 EK80_CPU_DB = {"BB": 1e-3, "CW_complex": 1e-4, "CW_power": 1e-4}
 BB_F64_DB = 1e-3
+# the matched filter's bf16 split products ("HIGH", "DEFAULT"): card against
+# the plain version on the CPU over a head of lanes (float32 sums in another
+# order: 2e-6 of the output's scale, tests/test_calibrate_ek80.py:308), and
+# HIGH against float64 within the JAX package's budget
+# (echopype_tpu/ops/matched_filter.py:25-29), in dB within 40 / 60 dB of the
+# peak: the product's power at full width, and compute_Sv BB on EK80_HEAD
+# pings against "HIGHEST" (Sv within 40 / 60 dB of the channel's peak Sv)
+SPLIT_HEAD, SPLIT_CPU_REL = 256, 2e-6
+HIGH_DB = {40: 0.004, 60: 0.02}
+# the bf16x3 arithmetic itself (its plain version on the card, float32 sums
+# rounded to nearest) reads 0.0221 dB within 60 dB of the peak over one
+# channel of file A, 65.5 M samples of noise (PERF.md §6): over 0.02 at
+# full width, the card's product is held to that arithmetic's own error
+# within this margin, and to HIGH_DB everywhere else
+HIGH_PLAIN_MARGIN_DB = 1e-3
 FUSED_VS_CHUNKED_DB, FUSED_LAST_BIN_DB = 5e-3, 0.2  # tests/test_survey.py:536-538
 # the masks phase: noise injected as tests/test_survey_clean.py:35-49 does
 # pings of A (grid route) and C (grid by ping) for the masks' card-vs-CPU
@@ -305,6 +331,7 @@ BINNING_HEAD, BINNING_RTOL = 500, 1e-6
 # SM, and every instruction, whatever its unit, takes one of those slots.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12  # dense bf16 on the tensor cores
 INSTR_PER_S = F32_OPS_PER_S / 2
 # instructions of the library expf / log10f on sm_90a inside a loop (SASS,
 # counted by tools/window_probe.py: 10 and 28, less the constant moves a
@@ -1481,14 +1508,41 @@ def _db_stats(a, b):
     return p50, p99, mx, int(np.count_nonzero(np.isnan(a) != np.isnan(b)))
 
 
+def _sv_db_within(sv, ref):
+    """|sv - ref| in dB over the samples whose ``ref`` lies within 40 and
+    within 60 dB of its channel's peak, and the NaN-mask mismatches."""
+    sv, ref = np.asarray(sv, dtype="f8"), np.asarray(ref, dtype="f8")
+    peak = np.nanmax(ref.reshape(ref.shape[0], -1), axis=1).reshape(-1, *[1] * (ref.ndim - 1))
+    err = np.abs(sv - ref)
+    out = {f"max_dB_within_{db}": float(np.nanmax(np.where(ref >= peak - db, err, np.nan)))
+           for db in (40, 60)}
+    out["nan_mismatch"] = int(np.count_nonzero(np.isnan(sv) != np.isnan(ref)))
+    return out
+
+
+def _power_db_err(re, im, re64, im64):
+    """Max |dB| error of the product's power against the float64 product's,
+    over the samples within 40 and within 60 dB of the float64 peak."""
+    p = (re.double() ** 2 + im.double() ** 2)
+    p64 = re64 ** 2 + im64 ** 2
+    peak = float(p64.max())
+    err = (10 * torch.log10(p / p64)).abs()
+    return {f"max_dB_within_{db}": float(err[p64 >= peak * 10 ** (-db / 10)].max())
+            for db in (40, 60)}
+
+
 def matched_filter_timing(ed, bp, ch, replica):
     """The matched filter's device program alone (the blocked-Toeplitz
     matmul of ``ops/matched_filter.py``) on one channel of file A, 2,000
     pings x 4 sectors x 8,192 float32 samples, timed with CUDA events in
-    both of its forms: float64 accumulation (compute_Sv's) and float32 (the
-    fused survey step's); each with its bound and one
-    ``torch.nn.functional.conv1d`` computing the same correlation in the
-    same dtype (the library call), timed and checked beside it."""
+    each of its forms: float64 accumulation (compute_Sv's at "HIGHEST"),
+    float32 (the fused survey step's), and the bf16 split products "HIGH"
+    and "DEFAULT"; each with its bound and, where one PyTorch call computes
+    the same, that call (``torch.nn.functional.conv1d`` in the same dtype;
+    bf16 for "DEFAULT"), timed and checked beside it.  The split products
+    are also held to their plain version on the CPU over a head of lanes,
+    timed alone against that plain version on the card, and held to the
+    float64 product at full width in dB within 40 and 60 dB of the peak."""
     from echopype_torch.ops import matched_filter as mf
 
     dev = torch.device("cuda")
@@ -1502,42 +1556,91 @@ def matched_filter_timing(ed, bp, ch, replica):
     rep = np.flipud(np.conj(np.asarray(replica)))
     L, T, z, n_lanes = len(rep), mf._block_t(len(rep)), mf._leading_zeros(replica), P * B
     torch.backends.cudnn.allow_tf32 = False
-    out = []
-    for dtype in (torch.float64, torch.float32):
+    out, exact = [], None
+    for form, dtype, precision in (("float64", torch.float64, "HIGHEST"),
+                                   ("float32", torch.float32, "HIGHEST"),
+                                   ("HIGH", torch.float32, "HIGH"),
+                                   ("DEFAULT", torch.float32, "DEFAULT")):
         hr, hi = (torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
                   for a in (rep.real, rep.imag))
 
         def product():
             return mf._toeplitz_conv(*(x.to(dtype) for x in lanes), hr, hi, L - 1, R,
-                                     tail_zeros=z)
+                                     tail_zeros=z, precision=precision)
 
         ms = cuda_ms(product)
         re, im = product()
-        # the library call: conv1d cross-correlates, so the kernel is the
-        # conjugated replica in the real block form [[cr, -ci], [ci, cr]]
-        cr, ci = hr.flip(0), hi.flip(0)
-        weight = torch.stack([torch.stack([cr, -ci]), torch.stack([ci, cr])])  # [2, 2, L]
-        x2 = torch.nn.functional.pad(torch.stack(lanes, dim=1).to(dtype), (0, L - 1))
-        library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x2, weight))
-        lib = torch.nn.functional.conv1d(x2, weight)
         scale = float(torch.maximum(re.abs().max(), im.abs().max()))
-        lib_rel = float(torch.maximum((lib[:, 0] - re).abs().max(),
-                                      (lib[:, 1] - im).abs().max())) / scale
+        row = {"channel": ch, "dtype": form, "lanes": n_lanes, "R": R, "L": L, "T": T}
+        # the library call: conv1d cross-correlates, so the kernel is the
+        # conjugated replica in the real block form [[cr, -ci], [ci, cr]];
+        # no single call computes HIGH's three bf16 passes
+        lib_dtype = {"HIGH": None, "DEFAULT": torch.bfloat16}.get(form, dtype)
+        if lib_dtype is not None:
+            cr, ci = hr.flip(0).to(lib_dtype), hi.flip(0).to(lib_dtype)
+            weight = torch.stack([torch.stack([cr, -ci]), torch.stack([ci, cr])])  # [2, 2, L]
+            x2 = torch.nn.functional.pad(torch.stack(lanes, dim=1).to(lib_dtype), (0, L - 1))
+            library_ms = cuda_ms(lambda: torch.nn.functional.conv1d(x2, weight))
+            lib = torch.nn.functional.conv1d(x2, weight).to(re.dtype)
+            lib_err = torch.maximum((lib[:, 0] - re).abs(), (lib[:, 1] - im).abs())
+            lib_rel = float(lib_err.max()) / scale
+            if form == "DEFAULT":  # conv1d rounds its outputs to bf16 (2^-9 of each)
+                slack = 2.0 ** -8 * torch.maximum(re.abs(), im.abs())
+                lib_ok = float((lib_err - slack).max()) / scale <= 2e-6
+            else:
+                lib_ok = lib_rel <= (1e-12 if dtype == torch.float64 else 2e-6)
+            row.update(library_ms=library_ms, library_max_rel_err=lib_rel)
+            del x2, lib, lib_err
+        else:
+            lib_ok = True
+            row.update(library_ms=None,
+                       library_note="no single PyTorch call computes a three-pass bf16 product")
+        passes = {"HIGH": 3, "DEFAULT": 1}.get(form)
         useful = 8.0 * n_lanes * R * L  # complex MACs, 4 multiplies and 4 adds each
         # float32 lanes in, the outputs out in the product's dtype, the replica
-        nbytes = 2 * 4 * n_lanes * R + 2 * re.element_size() * n_lanes * R + 2 * 8 * L
-        t_ops, t_bytes = useful / F32_OPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        out.append({"channel": ch, "dtype": str(dtype).split(".")[-1], "lanes": n_lanes, "R": R,
-                    "L": L, "T": T, "useful_flop": useful,
-                    "issued_flop": useful * (T + L - 1) / L, "bytes": nbytes, "ms": ms,
-                    "bound_ms": max(t_ops, t_bytes),
-                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                    "share_of_bound": max(t_ops, t_bytes) / ms, "library_ms": library_ms,
-                    "library_max_rel_err": lib_rel})
-        del re, im, x2, lib
+        nbytes = 2 * 4 * n_lanes * R + 2 * re.element_size() * n_lanes * R + 2 * hr.element_size() * L
+        t_ops = (useful * passes / BF16_FLOP_PER_S if passes else useful / F32_OPS_PER_S) * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        row.update(useful_flop=useful, issued_flop=useful * (passes or 1) * (T + L - 1) / L,
+                   bytes=nbytes, ms=ms, bound_ms=max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   share_of_bound=max(t_ops, t_bytes) / ms)
+        if form == "float64":
+            exact = (re, im)
+        else:
+            row.update(_power_db_err(re, im, *exact))
+        if passes:
+            # the product alone, tensor cores against the plain version on
+            # the card, on the operands the call above formed
+            A, Bm, _, _ = mf._split_operands(*lanes, hr, hi, L - 1, R, precision)
+            card = mf._split_matmul(A, Bm)
+            plain = mf._split_matmul_plain(A, Bm)
+            row.update(product_ms=cuda_ms(lambda: mf._split_matmul(A, Bm)),
+                       plain_ms=cuda_ms(lambda: mf._split_matmul_plain(A, Bm)),
+                       product_vs_plain_on_card=float((card - plain).abs().max())
+                       / float(plain.abs().max()))
+            plain_re_im = (plain[:, :, :T].reshape(n_lanes, -1)[:, :R],
+                           plain[:, :, T:].reshape(n_lanes, -1)[:, :R])
+            row.update({f"plain_{k}": v
+                        for k, v in _power_db_err(*plain_re_im, *exact).items()})
+            del A, Bm, card, plain, plain_re_im
+            cpu = mf._toeplitz_conv(*(x[:SPLIT_HEAD].cpu() for x in lanes), hr.cpu(), hi.cpu(),
+                                    L - 1, R, tail_zeros=z, precision=precision)
+            head_scale = float(torch.maximum(cpu[0].abs().max(), cpu[1].abs().max()))
+            head_rel = max(float((g[:SPLIT_HEAD].cpu() - c).abs().max())
+                           for g, c in zip((re, im), cpu)) / head_scale
+            row.update(card_vs_cpu_plain_head=head_rel, head_lanes=SPLIT_HEAD)
+            if head_rel > SPLIT_CPU_REL:
+                raise AssertionError(f"{form} product on the card vs CPU plain on {ch}: {head_rel}")
+            limit_60 = max(HIGH_DB[60], row["plain_max_dB_within_60"] + HIGH_PLAIN_MARGIN_DB)
+            if form == "HIGH" and not (row["max_dB_within_40"] <= HIGH_DB[40]
+                                       and row["max_dB_within_60"] <= limit_60):
+                raise AssertionError(f"HIGH product vs float64 on {ch}: {row}")
+        out.append(row)
+        del re, im
         torch.cuda.empty_cache()
-        if lib_rel > (1e-12 if dtype == torch.float64 else 2e-6):
-            raise AssertionError(f"matched filter and conv1d disagree on {ch}: {lib_rel}")
+        if not lib_ok:
+            raise AssertionError(f"matched filter and conv1d disagree on {ch} ({form}): {lib_rel}")
     return out
 
 
@@ -1574,7 +1677,7 @@ def ek80_phase(files):
     say("ek80_open", pings=EK80_PINGS, files=len(files), seconds=json.dumps(seconds),
         replica_L=json.dumps({f"{wm} {ch}": len(y) for (wm, ch), y in replicas.items()}))
 
-    checks, fields = {}, {}
+    checks, fields, reduced_launches = {}, {}, {}
     mf.reset_launches()
     for name, (wm, em) in {"BB": ("BB", "complex"), "CW_complex": ("CW", "complex"),
                            "CW_power": ("CW", "power")}.items():
@@ -1596,10 +1699,27 @@ def ek80_phase(files):
             fields["BB_f32_vs_f64_dB"] = {"p50": p50, "p99": p99, "max": mx,
                                           "nan_mismatch": nan_bad}
             checks["compute_Sv BB float32 vs float64"] = nan_bad == 0 and mx <= BB_F64_DB
+            for precision in ("HIGH", "DEFAULT"):
+                n0, before = mf.LAUNCHES["toeplitz_matmul"], mf._CONV_PRECISION
+                try:
+                    mf.set_conv_precision(precision)
+                    red = timed(f"compute_Sv_BB_{precision}_head", lambda: et.calibrate.compute_Sv(
+                        head, waveform_mode=wm, encode_mode=em))
+                finally:
+                    mf.set_conv_precision(before)
+                reduced_launches[precision] = mf.LAUNCHES["toeplitz_matmul"] - n0
+                stats = _sv_db_within(np.asarray(red["Sv"].values), g)
+                fields[f"BB_{precision}_vs_HIGHEST_dB"] = stats
+                if precision == "HIGH":
+                    checks["compute_Sv BB HIGH vs HIGHEST"] = (
+                        stats["nan_mismatch"] == 0 and stats["max_dB_within_40"] <= HIGH_DB[40]
+                        and stats["max_dB_within_60"] <= HIGH_DB[60])
+                del red
         del sv, cpu
     compute_sv_launches = dict(mf.LAUNCHES)
     say("ek80_compute_Sv", shape=[1, EK80_PINGS, EK80_R], seconds=json.dumps(seconds),
         matched_filter_launches=json.dumps(compute_sv_launches),
+        reduced_precision_launches=json.dumps(reduced_launches),
         **{k: json.dumps(v) for k, v in fields.items()})
 
     timings = [t for (wm, ch), y in replicas.items()
@@ -1669,6 +1789,9 @@ def ek80_phase(files):
     mf_launches = sum(d["toeplitz_matmul"] for k, d in launches.items() if k.endswith("cuda"))
     return ({k: power[k] for k in ("window_partials_uniform", "window_partials")},
             {"launches": mf_launches + compute_sv_launches["toeplitz_matmul"],
+             "launches_by_precision": {**reduced_launches, "HIGHEST": mf_launches
+                                       + compute_sv_launches["toeplitz_matmul"]
+                                       - sum(reduced_launches.values())},
              "timings": timings})
 
 

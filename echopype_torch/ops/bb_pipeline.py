@@ -13,12 +13,14 @@ prx from the beam-sector mean with impedance scaling, Sv from the TVG'd
 affine range.  Sample validity is the contiguous [0, valid_len) run; the
 first sample past the TVG shift, ``k0``, comes from the host in float64.
 
-``precision`` takes the JAX package's values ``None`` and ``"HIGHEST"``,
-which here mean the same: the matched filter's products run in float32
-with TF32 off, since no TF32 is allowed on the data path (about 1e-3 dB a
-bin).  ``"HIGH"`` and ``"DEFAULT"`` (reduced-precision products on the
-TPU) raise ``NotImplementedError``, any other value ``ValueError``, as
-``matched_filter.set_conv_precision`` refuses them.
+``precision`` takes the JAX package's values: ``None`` or ``"HIGHEST"``
+(the matched filter's product in float32 with TF32 off, since no TF32 is
+allowed on the data path), ``"HIGH"`` (the TPU's three-pass bf16 split
+product with float32 accumulation, not TF32) or ``"DEFAULT"`` (one bf16
+pass), any case, or a ``jax.lax.Precision`` of those names
+(``ops/matched_filter.py`` says what each computes); any other value raises
+``ValueError``.  The value applies to this call only: compute_Sv's
+precision (``matched_filter.set_conv_precision``) stays as it was.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch
 
 from ..device import resolve_device
 from .binning import binned_window_partials
-from .matched_filter import _leading_zeros, _toeplitz_conv, set_conv_precision
+from .matched_filter import _leading_zeros, _parse_precision, _toeplitz_conv
 
 __all__ = ["bb_chunk_sv", "bb_chunk_window_partials"]
 
@@ -43,8 +45,7 @@ def _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, of
                       valid_len, do_pc, precision=None, block_t=0, device="cuda"):
     """Shared complex -> Sv body: returns (sv, er) float32 [P, R] on
     ``device``.  hr, hi: the flipped-conjugated replica (host arrays)."""
-    if precision is not None:
-        set_conv_precision(precision)  # "HIGHEST" passes, the rest raise
+    precision = _parse_precision(precision)
     dev = resolve_device(device)
     f = lambda a: _on(dev, a)  # noqa: E731
     bs_r, bs_i = f(bs_r), f(bs_i)
@@ -61,7 +62,7 @@ def _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, of
         lanes_i = xi.permute(0, 2, 1).reshape(P * B, R)
         L = hr_h.shape[0]
         re, im = _toeplitz_conv(lanes_r, lanes_i, f(hr_h), f(hi_h), L - 1, R,
-                                block_t=block_t, tail_zeros=z)
+                                block_t=block_t, tail_zeros=z, precision=precision)
         inv = f(inv_norm)
         xr = re.reshape(P, B, R).permute(0, 2, 1) * inv
         xi = im.reshape(P, B, R).permute(0, 2, 1) * inv
@@ -111,7 +112,7 @@ def bb_chunk_window_partials(
     r_edges,             # f4 [n_r+1]
     n_x_window: int,
     do_pc: bool,
-    precision=None,            # None or "HIGHEST" (module docstring)
+    precision=None,            # None, "HIGHEST", "HIGH" or "DEFAULT" (module docstring)
     uniform_er: bool = False,  # ping-invariant dr: the 0/1 matmul over the grid row
     block_t: int = 0,          # matched-filter Toeplitz block override
     device="cuda",

@@ -9,22 +9,46 @@ restored after.
 The device path is the JAX package's blocked-Toeplitz product: outputs in
 blocks of T samples, each block one row of an [lanes, nblk, 2K] slab of the
 zero-extended input (K = T + L - 1, built by ``unfold``) times the real
-block matrix [[Hr, Hi], [-Hi, Hr]] of the flipped replica, so one
-``torch.matmul`` per channel gives the real and imaginary outputs directly
-(cuBLAS on the card; the JAX package computes this product outside any
-Pallas kernel too).  :func:`_toeplitz_conv` runs in its inputs' dtype, with
-TF32 off inside the call (TF32 keeps ~3 decimal digits, ~1e-3 dB a bin; the
-JAX package runs the product at ``Precision.HIGHEST``):
+block matrix [[Hr, Hi], [-Hi, Hr]] of the flipped replica, so one matrix
+product per channel gives the real and imaginary outputs directly (the JAX
+package computes this product outside any Pallas kernel too).
+:func:`_toeplitz_conv` takes the JAX package's precisions, set for
+compute_Sv by :func:`set_conv_precision` and passed by the fused survey
+step (``ops/bb_pipeline.py``):
 
-* ``pulse_compress_channel(..., precision="float32")``, compute_Sv's
+* ``"HIGHEST"`` (the default): one ``torch.matmul`` in the inputs' dtype,
+  TF32 off inside the call (TF32 keeps ~3 decimal digits, ~1e-3 dB a bin).
+  ``pulse_compress_channel(..., precision="float32")``, compute_Sv's
   default device path, ships the float32 samples and accumulates in
-  float64.  A float32 accumulation loses up to 5.3e-3 dB (the JAX package's
-  7.9e-3 dB) at the deep nulls of noise-like data, 75 dB under the median
-  Sv (PERF.md, PR 6, with both products' times on the card).
-* The fused survey step (``ops/bb_pipeline.py``) stays float32 end to end,
-  as in the JAX package: its error averages out in the bins.
+  float64: a float32 accumulation loses up to 5.3e-3 dB (the JAX
+  package's 7.9e-3 dB) at the deep nulls of noise-like data, 75 dB under
+  the median Sv (PERF.md §6).  The fused survey step stays float32 end
+  to end, as in the JAX package: its error averages out in the bins.
+* ``"HIGH"``: the TPU's three-pass bfloat16 product, not TF32 (no TF32 is
+  allowed on the data path).  The float32 slab X and block matrix H split
+  into bf16 parts, ``hi = bf16(v)`` and ``lo = bf16(v - hi)``, and
+  ``lo·Hhi + hi·Hlo + hi·Hhi`` (``lo·lo`` dropped, as on the TPU) is one
+  product ``[Xlo | Xhi | Xhi] @ [Hhi; Hlo; Hhi]`` with float32
+  accumulation: on the card a bf16 tensor-core product with a float32
+  output (``torch.mm(..., out_dtype=torch.float32)``), on the CPU its plain
+  version, the same parts upcast to float32 in one float32 matmul.  Each
+  bf16 × bf16 term is exact in float32, so the two differ only in how the
+  float32 sums round.  The small terms come first along K: the tensor
+  cores round their running sum towards zero, and after the large terms
+  each of the small terms' steps lost up to an ulp of the full sum
+  (``tools/split_product_probe.py`` on an H100: 5.2e-6 of the output's
+  scale large-first, 7.3e-7 small-first).  The JAX package's budget: <=
+  0.004 dB of the float64 matched filter within 40 dB of the peak, 0.02 dB
+  at -60 dB; over 65.5 M samples of noise the bf16x3 arithmetic itself,
+  float32 sums rounded to nearest or not, reads 0.003 dB within 40 dB and
+  0.022 dB within 60 dB (PERF.md §6).
+* ``"DEFAULT"``: the single pass ``hi·Hhi`` (0.6-2.4 dB in the JAX
+  package's measurement).
 
-``precision="float64"`` is the exact host path (numpy).
+Either reduced precision takes float32 in and gives float32 out; there is
+no fall-back on the card: where the bf16 product does not run, it raises.
+``precision="float64"`` of :func:`pulse_compress_channel` is the exact host
+path (numpy).
 """
 
 from __future__ import annotations
@@ -45,26 +69,34 @@ __all__ = [
 #: device matmuls issued by :func:`_toeplitz_conv` on a CUDA tensor
 LAUNCHES = {"toeplitz_matmul": 0}
 
+_PRECISIONS = ("HIGHEST", "HIGH", "DEFAULT")
+#: compute_Sv's matched-filter precision (:func:`set_conv_precision`)
+_CONV_PRECISION = "HIGHEST"
+
 
 def reset_launches() -> None:
     LAUNCHES["toeplitz_matmul"] = 0
 
 
-def set_conv_precision(precision) -> None:
-    """Accepts "HIGHEST", the only precision of the port's matched filter.
-
-    The JAX package's "HIGH" is a bf16x3 product on the TPU, which has no
-    PyTorch counterpart on the card but TF32 (~1e-3 dB a bin).
-    """
+def _parse_precision(precision) -> str:
+    """The canonical name of a matched-filter precision.  ``None`` is
+    "HIGHEST"; a name is taken in any case, from a string or from any object
+    whose ``str()`` is the name (``str(jax.lax.Precision.HIGH)`` is "HIGH",
+    so the JAX enum needs no import of jax).  Anything else raises."""
+    if precision is None:
+        return "HIGHEST"
     name = str(precision).upper()
-    if name == "HIGHEST":
-        return
-    if name in ("HIGH", "DEFAULT"):
-        raise NotImplementedError(
-            f"matched-filter precision {precision!r} is not ported to echopype_torch "
-            "(ROADMAP Queue 2b: the products here run without TF32)"
-        )
-    raise ValueError(f"unknown matched-filter precision {precision!r}")
+    if name not in _PRECISIONS:
+        raise ValueError(f"unknown matched-filter precision {precision!r}")
+    return name
+
+
+def set_conv_precision(precision) -> None:
+    """Set compute_Sv's matched-filter precision: "HIGHEST" (the default),
+    "HIGH" (the bf16x3 split product) or "DEFAULT" (one bf16 pass), or a
+    ``jax.lax.Precision`` of those names (module docstring)."""
+    global _CONV_PRECISION
+    _CONV_PRECISION = _parse_precision(precision)
 
 
 def _block_t(L: int) -> int:
@@ -73,25 +105,26 @@ def _block_t(L: int) -> int:
     return max(128, 128 * int(round(L / 256.0))) if L > 192 else 128
 
 
-def _toeplitz_conv(xr, xi, hr, hi, out_start: int, out_len: int, block_t: int = 0,
-                   tail_zeros: int = 0):
-    """Linear complex convolution of real/imaginary lanes by the
-    blocked-Toeplitz matmul, in the inputs' dtype.
+def _bf16_lo(v, hi):
+    """The low bf16 part of ``v`` beside its high part ``hi = bf16(v)``:
+    bf16(v - hi), the difference exact in float32."""
+    return (v.float() - hi.float()).to(torch.bfloat16)
 
-    xr, xi [lanes, W]; hr, hi [L] on the same device.  Returns (re, im)
-    [lanes, out_len]: output n is sum_k x[n + k - (L - 1 - out_start)] *
-    h[L - 1 - k].  The last ``tail_zeros`` outputs touch only exact-zero
-    taps (the Hann taper's endpoint) and are set to exactly 0.
-    """
+
+def _toeplitz_operands(parts, hr, hi, out_start: int, out_len: int, block_t: int = 0):
+    """The blocked-Toeplitz product's operands: (X [lanes, nblk, len(parts)
+    * K], the blocks of each [lanes, W] tensor of ``parts`` side by side in
+    its dtype; Hc [2K, 2T], the block matrix of the flipped replica in
+    ``hr``'s dtype; T; nblk)."""
     L = int(hr.shape[0])
-    lanes, W = xr.shape
+    W = parts[0].shape[1]
     hr_f, hi_f = hr.flip(0), hi.flip(0)
     T = block_t or _block_t(L)
     K = T + L - 1
     nblk = -(-out_len // T)
     pad_left = L - 1 - out_start
     if pad_left < 0:  # the window starts past the head: drop unused input
-        xr, xi = xr[:, -pad_left:], xi[:, -pad_left:]
+        parts = [x[:, -pad_left:] for x in parts]
         W += pad_left
         pad_left = 0
     total = nblk * T + L - 1
@@ -107,10 +140,66 @@ def _toeplitz_conv(xr, xi, hr, hi, out_start: int, out_len: int, block_t: int = 
     Hr = torch.where(band, hr_f[idx], 0.0)
     Hi = torch.where(band, hi_f[idx], 0.0)
     Hc = torch.cat([torch.cat([Hr, Hi], dim=1), torch.cat([-Hi, Hr], dim=1)], dim=0)
-    X = torch.cat([expand(xr), expand(xi)], dim=-1)  # [lanes, nblk, 2K]
+    X = torch.cat([expand(x) for x in parts], dim=-1)
+    return X, Hc, T, nblk
+
+
+def _split_operands(xr, xi, hr, hi, out_start: int, out_len: int, precision: str,
+                    block_t: int = 0):
+    """The bf16 operands (A, B, T, nblk) of the split product.  The lanes
+    split before they are blocked (bf16 rounding commutes with the copy, and
+    the blocks hold each sample K / T times).  "HIGH": the three terms along
+    K, the two small ones first, ``[Xlo | Xhi | Xhi] @ [Hhi; Hlo; Hhi]``;
+    "DEFAULT": ``Xhi @ Hhi``.  X and H are taken as float32."""
+    rh, ih = xr.float().to(torch.bfloat16), xi.float().to(torch.bfloat16)
+    parts = [rh, ih]
+    if precision == "HIGH":
+        parts = [_bf16_lo(xr, rh), _bf16_lo(xi, ih), rh, ih, rh, ih]
+    A, Hc, T, nblk = _toeplitz_operands(parts, hr, hi, out_start, out_len, block_t)
+    hh = Hc.float().to(torch.bfloat16)
+    B = torch.cat([hh, _bf16_lo(Hc, hh), hh], dim=0) if precision == "HIGH" else hh
+    return A, B, T, nblk
+
+
+def _split_matmul_plain(A, B):
+    """The split product's plain version: the bf16 parts upcast to float32,
+    one float32 matmul with TF32 off."""
     with no_tf32():
-        Y = torch.matmul(X, Hc)  # [lanes, nblk, 2T]
-    if X.is_cuda:
+        return torch.matmul(A.float(), B.float())
+
+
+def _split_matmul(A, B):
+    """A [..., k] @ B [k, n] of bf16 parts, float32 out.  On the card one
+    tensor-core product with float32 accumulation and output (the
+    ``aten::mm.dtype`` overload; where it is missing this raises); on the
+    CPU the plain version."""
+    if not A.is_cuda:
+        return _split_matmul_plain(A, B)
+    Y = torch.mm(A.reshape(-1, A.shape[-1]), B, out_dtype=torch.float32)
+    return Y.reshape(*A.shape[:-1], B.shape[1])
+
+
+def _toeplitz_conv(xr, xi, hr, hi, out_start: int, out_len: int, block_t: int = 0,
+                   tail_zeros: int = 0, precision: str = "HIGHEST"):
+    """Linear complex convolution of real/imaginary lanes by the
+    blocked-Toeplitz matmul.
+
+    xr, xi [lanes, W]; hr, hi [L] on the same device.  Returns (re, im)
+    [lanes, out_len]: output n is sum_k x[n + k - (L - 1 - out_start)] *
+    h[L - 1 - k].  The last ``tail_zeros`` outputs touch only exact-zero
+    taps (the Hann taper's endpoint) and are set to exactly 0.
+    ``precision`` "HIGHEST" computes in the inputs' dtype; "HIGH" and
+    "DEFAULT" are the bf16 split products, float32 out (module docstring).
+    """
+    lanes = xr.shape[0]
+    if precision == "HIGHEST":
+        X, Hc, T, nblk = _toeplitz_operands([xr, xi], hr, hi, out_start, out_len, block_t)
+        with no_tf32():
+            Y = torch.matmul(X, Hc)  # [lanes, nblk, 2T]
+    else:
+        A, B, T, nblk = _split_operands(xr, xi, hr, hi, out_start, out_len, precision, block_t)
+        Y = _split_matmul(A, B)
+    if xr.is_cuda:
         LAUNCHES["toeplitz_matmul"] += 1
     re = Y[:, :, :T].reshape(lanes, nblk * T)[:, :out_len]
     im = Y[:, :, T:].reshape(lanes, nblk * T)[:, :out_len]
@@ -161,8 +250,10 @@ def pulse_compress_channel(bs: np.ndarray, replica: np.ndarray, precision: str =
     [ping, range, beam] with the reference's truncation.
 
     ``precision="float64"`` runs the exact host path; ``"float32"`` the
-    blocked-Toeplitz matmul on ``device``: the samples ship as float32, the
-    product accumulates in float64.
+    blocked-Toeplitz matmul on ``device`` at :func:`set_conv_precision`'s
+    precision: at "HIGHEST" the samples ship as float32 and the product
+    accumulates in float64; at "HIGH" or "DEFAULT" samples and replica ship
+    as float32 for the bf16 split product, as in the JAX package.
     """
     rep = np.flipud(np.conj(np.asarray(replica)))
     L = len(rep)
@@ -174,13 +265,16 @@ def pulse_compress_channel(bs: np.ndarray, replica: np.ndarray, precision: str =
         out = _host_conv_f64(lanes, rep)
     else:
         dev = resolve_device(device)
+        conv = _CONV_PRECISION
+        dtype, rep_dtype = (torch.float64, "f8") if conv == "HIGHEST" else (torch.float32, "f4")
 
-        def _t(a, dtype):
-            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(dev).double()
+        def _t(a, np_dtype):
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype)).to(dev, dtype)
 
-        re, im = _toeplitz_conv(_t(lanes.real, "f4"), _t(lanes.imag, "f4"), _t(rep.real, "f8"),
-                                _t(rep.imag, "f8"), L - 1, R, tail_zeros=_leading_zeros(replica))
-        out = re.cpu().numpy() + 1j * im.cpu().numpy()
+        re, im = _toeplitz_conv(_t(lanes.real, "f4"), _t(lanes.imag, "f4"),
+                                _t(rep.real, rep_dtype), _t(rep.imag, rep_dtype), L - 1, R,
+                                tail_zeros=_leading_zeros(replica), precision=conv)
+        out = re.double().cpu().numpy() + 1j * im.double().cpu().numpy()
     out = out.reshape(P, B, R).transpose(0, 2, 1)
     return np.where(nan_mask, np.nan + 1j * np.nan, out)
 

@@ -5,8 +5,9 @@ from a ``sys.meta_path`` finder, imports echopype_torch and runs the
 raw->MVBS survey, ``open_raw`` -> ``compute_Sv`` -> ``compute_MVBS`` /
 ``compute_MVBS_index_binning``, the fused survey step, and
 ``consolidate.add_location`` / ``add_depth`` -> ``run_survey_mvbs`` /
-``run_survey_nasc``, EK80: ``open_raw`` -> BB ``compute_Sv`` and the
-fused BB survey (``device_fused=True``), and the masks: ``clean.mask_*``,
+``run_survey_nasc``, EK80: ``open_raw`` -> BB ``compute_Sv`` (also under
+``set_conv_precision("HIGH")``) and the fused BB survey
+(``device_fused=True``), and the masks: ``clean.mask_*``,
 ``mask.frequency_differencing`` -> ``apply_mask``, and the survey
 streamers with ``freq_diff`` and ``noise_masks``, and the other instruments:
 AZFP ``open_raw`` -> ``compute_Sv`` and the AZFP raw survey (plain,
@@ -107,6 +108,16 @@ _SCRIPT = textwrap.dedent(
                                         encode_mode="complex", device_fused=True,
                                         range_bin="0.2m", ping_time_bin="2s", device="cpu")
     assert np.isfinite(bb["Sv"].values).any() and np.isfinite(fused["Sv"].values).any()
+    from echopype_torch.ops import matched_filter as mf
+
+    mf.set_conv_precision("HIGH")
+    try:
+        bb_high = et.calibrate.compute_Sv(ed80, waveform_mode="BB", encode_mode="complex",
+                                          device="cpu")
+    finally:
+        mf.set_conv_precision("HIGHEST")
+    assert np.array_equal(np.isnan(bb_high["Sv"].values), np.isnan(bb["Sv"].values))
+    assert not np.array_equal(bb_high["Sv"].values, bb["Sv"].values, equal_nan=True)
     imp = et.clean.mask_impulse_noise(sv, depth_bin="4m", num_side_pings=2, device="cpu")
     trn = et.clean.mask_transient_noise(sv, depth_bin="6m", num_side_pings=3,
                                         exclude_above="2m", device="cpu")

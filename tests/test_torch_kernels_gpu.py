@@ -38,7 +38,10 @@ twice on such a chunk is bit-identical.
 
 EK80: the matched filter (``ops/matched_filter.py``) on the card at 2,000
 pings x 4 sectors x 8,192 samples against the host float64 convolution,
-with TF32 off inside its matmul (float32 and float64 products); the fused BB chunk
+with TF32 off inside its matmul (float32 and float64 products); its bf16
+split products ("HIGH", "DEFAULT") against their plain version on the CPU
+within 2e-6 of scale, and HIGH raising where the card's bf16 product does
+not run; the fused BB chunk
 (``ops/bb_pipeline.py``) run twice bit-identical and against the CPU.
 
 Masks: each window program of ``ops/windows.py`` (pooled transient mask on
@@ -525,6 +528,47 @@ def test_tf32_off_inside_the_card_matmul(cuda, monkeypatch):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     assert seen[1][:2] == (True, False)
+
+
+@pytest.mark.parametrize("precision", ["HIGH", "DEFAULT"])
+def test_split_product_card_vs_cpu_plain(cuda, precision):
+    """The bf16 split product on the card's tensor cores, one launch,
+    against its plain version on the CPU: 100 pings x 4 sectors x 8,192
+    samples of noise through the synthetic BB replica, float32 out, max
+    |error| / max |plain| < 2e-6 (float32 sums in another order)."""
+    from echopype_torch.ops import matched_filter as mf
+
+    rep = np.flipud(np.conj(_bb_replica()))
+    lanes = np.nan_to_num(_bb_samples(23, 100)).transpose(0, 2, 1).reshape(-1, 8192)
+    t = [torch.from_numpy(np.ascontiguousarray(a, "f4"))
+         for a in (lanes.real, lanes.imag, rep.real, rep.imag)]
+    L = len(rep)
+    mf.reset_launches()
+    card = mf._toeplitz_conv(*(x.to(cuda) for x in t), L - 1, 8192, precision=precision)
+    torch.cuda.synchronize()
+    assert mf.LAUNCHES["toeplitz_matmul"] == 1
+    plain = mf._toeplitz_conv(*t, L - 1, 8192, precision=precision)
+    scale = max(float(p.abs().max()) for p in plain)
+    for c, p in zip(card, plain):
+        assert c.dtype == torch.float32 and c.is_cuda
+        assert float((c.cpu() - p).abs().max()) / scale < 2e-6
+
+
+def test_split_product_raises_without_the_bf16_product(cuda, monkeypatch):
+    """Where the card's bf16 product with a float32 output does not run,
+    HIGH raises: no float32 or plain fall-back, no launch counted."""
+    from echopype_torch.ops import matched_filter as mf
+
+    def missing(*a, **k):
+        raise NotImplementedError("aten::mm.dtype is missing")
+
+    monkeypatch.setattr(torch, "mm", missing)
+    x = torch.randn(4, 500, device=cuda)
+    h = torch.randn(40, device=cuda)
+    mf.reset_launches()
+    with pytest.raises(NotImplementedError, match="mm.dtype"):
+        mf._toeplitz_conv(x, x, h, h, 39, 500, precision="HIGH")
+    assert mf.LAUNCHES["toeplitz_matmul"] == 0
 
 
 @pytest.mark.parametrize("uniform_er", [True, False])

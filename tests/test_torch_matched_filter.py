@@ -161,13 +161,18 @@ def test_tf32_off_inside_the_call(monkeypatch):
     assert seen[1][0] is False
 
 
-def test_conv_precision_knob():
-    tmf.set_conv_precision("HIGHEST")
-    tmf.set_conv_precision("highest")
-    with pytest.raises(NotImplementedError, match="Queue 2b"):
-        tmf.set_conv_precision("HIGH")
+def test_conv_precision_knob(monkeypatch):
+    """The JAX package's three precisions, in any case, are stored by name
+    (``None`` is HIGHEST); any other value is refused and leaves the setting
+    as it was."""
+    monkeypatch.setattr(tmf, "_CONV_PRECISION", tmf._CONV_PRECISION)  # restored afterwards
+    for given, stored in (("HIGHEST", "HIGHEST"), ("highest", "HIGHEST"), ("HIGH", "HIGH"),
+                          ("default", "DEFAULT"), (None, "HIGHEST"), ("High", "HIGH")):
+        tmf.set_conv_precision(given)
+        assert tmf._CONV_PRECISION == stored
     with pytest.raises(ValueError):
         tmf.set_conv_precision("FASTEST")
+    assert tmf._CONV_PRECISION == "HIGH"
 
 
 def test_batched_matches_per_channel():

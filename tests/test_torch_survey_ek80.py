@@ -185,7 +185,9 @@ def test_bb_chunk_precision_by_position():
     """The JAX parameter order: ``precision`` follows ``do_pc`` in both
     functions.  ``"HIGHEST"`` by position equals ``None`` bit for bit (it
     took the uniform-grid route before it had its own parameter); the
-    reduced TPU precisions raise, as ``set_conv_precision`` does."""
+    reduced precisions ``"HIGH"`` and ``"DEFAULT"`` by position equal the
+    same by keyword and change the sums, and any other value raises, as
+    ``set_conv_precision`` does."""
     ops = _chunk_operands(4, vary_dr=True)
     r_edges = np.arange(0, 300 * 0.0125 + 0.5, 0.5).astype("f4")
     base = tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, device="cpu")
@@ -193,15 +195,23 @@ def test_bb_chunk_precision_by_position():
     for a, b in zip(base, highest):
         assert torch.equal(a, b) and a.dtype == torch.float64
     sv_ops = ops[:-1]
-    for a, b in zip(tbb.bb_chunk_sv(*sv_ops, True, device="cpu"),
-                    tbb.bb_chunk_sv(*sv_ops, True, "HIGHEST", device="cpu")):
+    base_sv = tbb.bb_chunk_sv(*sv_ops, True, device="cpu")
+    for a, b in zip(base_sv, tbb.bb_chunk_sv(*sv_ops, True, "HIGHEST", device="cpu")):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
-    for bad, err in (("HIGH", NotImplementedError), ("DEFAULT", NotImplementedError),
-                     ("float16", ValueError)):
-        with pytest.raises(err):
-            tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, bad, device="cpu")
-        with pytest.raises(err):
-            tbb.bb_chunk_sv(*sv_ops, True, bad, device="cpu")
+    for reduced in ("HIGH", "DEFAULT"):
+        pos = tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, reduced, device="cpu")
+        kw = tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, precision=reduced,
+                                          device="cpu")
+        for a, b in zip(pos, kw):
+            assert torch.equal(a, b)
+        assert torch.equal(pos[1], base[1]) and not torch.equal(pos[0], base[0])
+        sv, er = tbb.bb_chunk_sv(*sv_ops, True, reduced, device="cpu")
+        torch.testing.assert_close(er, base_sv[1], rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(torch.isnan(sv), torch.isnan(base_sv[0]))
+    with pytest.raises(ValueError):
+        tbb.bb_chunk_window_partials(*ops, r_edges, 3, True, "float16", device="cpu")
+    with pytest.raises(ValueError):
+        tbb.bb_chunk_sv(*sv_ops, True, "float16", device="cpu")
 
 
 @pytest.mark.parametrize("do_pc", [True, False], ids=["bb", "cw"])
