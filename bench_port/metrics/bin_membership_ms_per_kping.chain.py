@@ -1,0 +1,7 @@
+"""Chain stage bin_membership (ops.binning: host float64 membership and the uniformity test), from the program's stages in the traced window (profiling.TRACED), ms per 1,000 pings."""
+
+from bench_port.traced import stage_ms_per_kping
+
+
+def read(rec):
+    return stage_ms_per_kping(rec, "bin_membership")

@@ -1,0 +1,7 @@
+"""Chain stage mvbs_prepare (compute_MVBS: dtype copies, range conform, sort and orient, ping bounds), from the program's stages in the traced window (profiling.TRACED), ms per 1,000 pings."""
+
+from bench_port.traced import stage_ms_per_kping
+
+
+def read(rec):
+    return stage_ms_per_kping(rec, "mvbs_prepare")

@@ -14,6 +14,7 @@ import numpy as np
 
 from ..ops.calibration import ek_power_cal
 from ..utils.log import _init_logger
+from ..utils.profiling import stage
 from ..xrlite import DataArray, Dataset
 from .cal_params import get_cal_params_EK
 from .env_params import get_env_params_EK
@@ -180,35 +181,36 @@ class CalibrateEK(CalibrateBase):
     def _cal_power_samples(self, cal_type: str) -> Dataset:
         """EK60/EK80 power-mode calibration via the torch sonar-equation pass."""
         beam = self.beam
-        power, dr, shift_cp, alpha_cp, offset, tau_eff = self._power_cal_inputs(cal_type)
+        with stage("cal_inputs"):
+            power, dr, shift_cp, alpha_cp, offset, tau_eff = self._power_cal_inputs(cal_type)
         out_vals, echo_range = ek_power_cal(
             power, dr, shift_cp, alpha_cp, offset, cal_type,
             precision=self.precision, device=self.device,
         )
-
-        coords = {
-            "channel": beam.coords["channel"],
-            "ping_time": beam.coords["ping_time"],
-            "range_sample": beam.coords["range_sample"],
-        }
-        ds = Dataset(coords=coords)
-        ds[cal_type] = (("channel", "ping_time", "range_sample"), out_vals)
-        # mask echo_range by backscatter NaN (range.py:140-150)
-        ds["echo_range"] = (("channel", "ping_time", "range_sample"), echo_range)
-        if cal_type == "Sv":
-            ds["tau_effective"] = (
-                ("channel", "ping_time"),
-                tau_eff,
-                {
-                    "long_name": "Effective pulse length",
-                    "units": "s",
-                    "description": "Effective pulse length used for Sv. "
-                    "GPT uses transmit_duration_nominal.",
-                },
-            )
-        ds["frequency_nominal"] = beam["frequency_nominal"]
-        ds = self._add_params_to_output(ds)
-        return ds
+        with stage("sv_assemble"):
+            coords = {
+                "channel": beam.coords["channel"],
+                "ping_time": beam.coords["ping_time"],
+                "range_sample": beam.coords["range_sample"],
+            }
+            ds = Dataset(coords=coords)
+            ds[cal_type] = (("channel", "ping_time", "range_sample"), out_vals)
+            # mask echo_range by backscatter NaN (range.py:140-150)
+            ds["echo_range"] = (("channel", "ping_time", "range_sample"), echo_range)
+            if cal_type == "Sv":
+                ds["tau_effective"] = (
+                    ("channel", "ping_time"),
+                    tau_eff,
+                    {
+                        "long_name": "Effective pulse length",
+                        "units": "s",
+                        "description": "Effective pulse length used for Sv. "
+                        "GPT uses transmit_duration_nominal.",
+                    },
+                )
+            ds["frequency_nominal"] = beam["frequency_nominal"]
+            ds = self._add_params_to_output(ds)
+            return ds
 
     def _ek80_power_tau_effective(self, tau_eff, tdn):
         """Base hook; CalibrateEK80 overrides it with the replica-derived tau
@@ -227,27 +229,28 @@ class CalibrateEK60(CalibrateEK):
         self.beam = echodata[self.ed_beam_group]
         self.vend = echodata["Vendor_specific"]
 
-        if self.ecs_file is not None:
-            from .ecs import ecs_to_params
+        with stage("cal_inputs"):
+            if self.ecs_file is not None:
+                from .ecs import ecs_to_params
 
-            self.env_params, self.cal_params = ecs_to_params(
-                self.ecs_file, "EK60", self.beam["frequency_nominal"]
+                self.env_params, self.cal_params = ecs_to_params(
+                    self.ecs_file, "EK60", self.beam["frequency_nominal"]
+                )
+
+            self.env_params = get_env_params_EK(
+                sonar_type=self.sonar_type,
+                beam=self.beam,
+                env=echodata["Environment"],
+                user_dict=self.env_params,
             )
-
-        self.env_params = get_env_params_EK(
-            sonar_type=self.sonar_type,
-            beam=self.beam,
-            env=echodata["Environment"],
-            user_dict=self.env_params,
-        )
-        self.cal_params = get_cal_params_EK(
-            waveform_mode=self.waveform_mode,
-            freq_center=self.beam["frequency_nominal"],
-            beam=self.beam,
-            vend=self.vend,
-            user_dict=self.cal_params,
-            sonar_type=self.sonar_type,
-        )
+            self.cal_params = get_cal_params_EK(
+                waveform_mode=self.waveform_mode,
+                freq_center=self.beam["frequency_nominal"],
+                beam=self.beam,
+                vend=self.vend,
+                user_dict=self.cal_params,
+                sonar_type=self.sonar_type,
+            )
 
     def compute_Sv(self, **kw):
         return self._cal_power_samples("Sv")

@@ -19,6 +19,7 @@ import torch
 from ..device import resolve_device
 from ..ops import binning
 from ..utils.compute import _lin2log, _log2lin
+from ..utils.profiling import stage
 from ..utils.prov import add_processing_level, echopype_prov_attrs, insert_input_processing_level
 from ..xrlite import Dataset
 from .utils import (
@@ -66,77 +67,79 @@ def compute_MVBS(
     (reference commongrid/api.py:31-191).  ``method`` and ``reindex`` are
     accepted for the reference's signature and change nothing.
     """
-    dev = resolve_device(device)
-    ds_Sv, range_bin_m = _setup_and_validate(ds_Sv, range_var, range_bin, closed)
-    if not isinstance(ping_time_bin, str):
-        raise TypeError("ping_time_bin must be a string")
+    with stage("mvbs_prepare"):
+        dev = resolve_device(device)
+        ds_Sv, range_bin_m = _setup_and_validate(ds_Sv, range_var, range_bin, closed)
+        if not isinstance(ping_time_bin, str):
+            raise TypeError("ping_time_bin must be a string")
 
-    er = np.asarray(ds_Sv[range_var].values, dtype="f8")
-    if range_var_max is None:
-        range_var_max_val = np.nanmax(er)
-    else:
-        range_var_max_val = _parse_x_bin(str(range_var_max), "range_bin") + 1e-8
-    range_edges = np.arange(0, range_var_max_val + range_bin_m, range_bin_m)
+        er = np.asarray(ds_Sv[range_var].values, dtype="f8")
+        if range_var_max is None:
+            range_var_max_val = np.nanmax(er)
+        else:
+            range_var_max_val = _parse_x_bin(str(range_var_max), "range_bin") + 1e-8
+        range_edges = np.arange(0, range_var_max_val + range_bin_m, range_bin_m)
 
-    ping_time = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]")
-    ping_edges = ping_time_bin_edges(ping_time, ping_time_bin)
-    n_x = len(ping_edges) - 1
+        ping_time = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]")
+        ping_edges = ping_time_bin_edges(ping_time, ping_time_bin)
+        n_x = len(ping_edges) - 1
 
-    sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
-    er_b = np.broadcast_to(_conform_range(er, ds_Sv, range_var, sv.shape), sv.shape)
+        sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
+        er_b = np.broadcast_to(_conform_range(er, ds_Sv, range_var, sv.shape), sv.shape)
 
-    # sorted-contiguous reduction: the ping axis sorted (argsort if not), the
-    # range axis increasing (flipped for an upward-looking instrument)
-    sv, er_b, order = _sort_ping_axis(sv, er_b, ping_time)
-    sv, er_b = _orient_range_axis(sv, er_b)
+        # sorted-contiguous reduction: the ping axis sorted (argsort if not), the
+        # range axis increasing (flipped for an upward-looking instrument)
+        sv, er_b, order = _sort_ping_axis(sv, er_b, ping_time)
+        sv, er_b = _orient_range_axis(sv, er_b)
 
-    pt_sorted = ping_time[order] if order is not None else ping_time
-    x_bounds = binning.x_bounds_np(pt_sorted.astype("i8"), ping_edges.astype("i8"), closed)
-    # bin membership in the original ping order (for the lat/lon reduction)
-    x_idx = binning.bin_index_np(ping_time.astype("i8"), ping_edges.astype("i8"), closed)
+        pt_sorted = ping_time[order] if order is not None else ping_time
+        x_bounds = binning.x_bounds_np(pt_sorted.astype("i8"), ping_edges.astype("i8"), closed)
+        # bin membership in the original ping order (for the lat/lon reduction)
+        x_idx = binning.bin_index_np(ping_time.astype("i8"), ping_edges.astype("i8"), closed)
 
     sums_w, counts_w, nan_w = binning.windowed_partials_np(
         sv, er_b, np.asarray(range_edges, dtype="f8"), x_bounds,
         skipna=bool(skipna), closed=closed, device=dev,
     )
-    mvbs = _binned_mean_to_db(sums_w, counts_w, nan_w, fill_value)
+    with stage("mvbs_assemble"):
+        mvbs = _binned_mean_to_db(sums_w, counts_w, nan_w, fill_value)
 
-    dim_0 = ds_Sv["Sv"].dims[0]
-    ds_MVBS = Dataset(
-        coords={
-            dim_0: ds_Sv.coords[dim_0],
-            "ping_time": ping_edges[:-1],
-            range_var: range_edges[:-1],
-        }
-    )
-    ds_MVBS["Sv"] = ((dim_0, "ping_time", range_var), mvbs)
-    ds_MVBS = get_reduced_positions(ds_Sv, ds_MVBS, "ping_time", x_idx, n_x)
+        dim_0 = ds_Sv["Sv"].dims[0]
+        ds_MVBS = Dataset(
+            coords={
+                dim_0: ds_Sv.coords[dim_0],
+                "ping_time": ping_edges[:-1],
+                range_var: range_edges[:-1],
+            }
+        )
+        ds_MVBS["Sv"] = ((dim_0, "ping_time", range_var), mvbs)
+        ds_MVBS = get_reduced_positions(ds_Sv, ds_MVBS, "ping_time", x_idx, n_x)
 
-    if range_var == "echo_range" and "water_level" in ds_Sv.data_vars:
-        ds_MVBS["water_level"] = ds_Sv["water_level"]
+        if range_var == "echo_range" and "water_level" in ds_Sv.data_vars:
+            ds_MVBS["water_level"] = ds_Sv["water_level"]
 
-    _set_MVBS_attrs(ds_MVBS)
-    ds_MVBS.coords[range_var].attrs = {"long_name": "Range distance", "units": "m"}
-    tval, tlabel = parse_time_bin_to_value_unit(ping_time_bin)
-    ds_MVBS.data_vars["Sv"].attrs.update(
-        {
-            "cell_methods": (
-                f"ping_time: mean (interval: {tval} {tlabel} "
-                "comment: ping_time is the interval start) "
-                f"{range_var}: mean (interval: {range_bin_m} meter "
-                f"comment: {range_var} is the interval start)"
-            ),
-            "binning_mode": "physical units",
-            "range_meter_interval": str(range_bin_m) + "m",
-            "ping_time_interval": ping_time_bin,
-        }
-    )
-    prov = echopype_prov_attrs("processing")
-    prov["processing_function"] = "commongrid.compute_MVBS"
-    ds_MVBS.attrs.update(prov)
-    if "frequency_nominal" in ds_Sv:
-        ds_MVBS["frequency_nominal"] = ds_Sv["frequency_nominal"]
-    return insert_input_processing_level(ds_MVBS, input_ds=ds_Sv)
+        _set_MVBS_attrs(ds_MVBS)
+        ds_MVBS.coords[range_var].attrs = {"long_name": "Range distance", "units": "m"}
+        tval, tlabel = parse_time_bin_to_value_unit(ping_time_bin)
+        ds_MVBS.data_vars["Sv"].attrs.update(
+            {
+                "cell_methods": (
+                    f"ping_time: mean (interval: {tval} {tlabel} "
+                    "comment: ping_time is the interval start) "
+                    f"{range_var}: mean (interval: {range_bin_m} meter "
+                    f"comment: {range_var} is the interval start)"
+                ),
+                "binning_mode": "physical units",
+                "range_meter_interval": str(range_bin_m) + "m",
+                "ping_time_interval": ping_time_bin,
+            }
+        )
+        prov = echopype_prov_attrs("processing")
+        prov["processing_function"] = "commongrid.compute_MVBS"
+        ds_MVBS.attrs.update(prov)
+        if "frequency_nominal" in ds_Sv:
+            ds_MVBS["frequency_nominal"] = ds_Sv["frequency_nominal"]
+        return insert_input_processing_level(ds_MVBS, input_ds=ds_Sv)
 
 
 def _sort_ping_axis(sv, er_b, ping_time):

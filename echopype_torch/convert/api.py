@@ -14,6 +14,7 @@ import numpy as np
 from ..core import SONAR_MODELS, validate_ext
 from ..echodata.echodata import EchoData
 from ..utils.log import _init_logger
+from ..utils.profiling import stage
 from ..utils.prov import add_processing_level
 
 logger = _init_logger(__name__)
@@ -85,38 +86,41 @@ def open_raw(
         storage_options=storage_options,
     )
 
-    parser_cls = SONAR_MODELS[sonar_model]["parser"]()
-    parser = parser_cls(
-        raw_file,
-        bot_file=bot_file,
-        idx_file=idx_file,
-        storage_options=storage_options,
-        sonar_model=sonar_model,
-        xml_path=xml_path,
-    )
-    parser.parse_raw()
-    parser.rectangularize_data()
+    with stage("parse_raw"):
+        parser_cls = SONAR_MODELS[sonar_model]["parser"]()
+        parser = parser_cls(
+            raw_file,
+            bot_file=bot_file,
+            idx_file=idx_file,
+            storage_options=storage_options,
+            sonar_model=sonar_model,
+            xml_path=xml_path,
+        )
+        parser.parse_raw()
+        parser.rectangularize_data()
 
-    setgrouper_cls = SONAR_MODELS[sonar_model]["set_groups"]()
-    sg = setgrouper_cls(parser, input_file=raw_file, sonar_model=sonar_model, params=convert_params)
+    with stage("set_groups"):
+        setgrouper_cls = SONAR_MODELS[sonar_model]["set_groups"]()
+        sg = setgrouper_cls(parser, input_file=raw_file, sonar_model=sonar_model,
+                            params=convert_params)
 
-    # beam groups first: EK80's Sonar group records the resulting group split
-    beam_groups = sg.set_beam()
-    tree = {
-        "Top-level": sg.set_toplevel(),
-        "Environment": sg.set_env(),
-        "Platform": sg.set_platform(),
-        "Platform/NMEA": sg.set_nmea(),
-        "Provenance": sg.set_provenance(),
-        "Sonar": sg.set_sonar(),
-        "Vendor_specific": sg.set_vendor(),
-    }
-    for i, bg in enumerate(beam_groups, start=1):
-        tree[f"Sonar/Beam_group{i}"] = bg
+        # beam groups first: EK80's Sonar group records the resulting group split
+        beam_groups = sg.set_beam()
+        tree = {
+            "Top-level": sg.set_toplevel(),
+            "Environment": sg.set_env(),
+            "Platform": sg.set_platform(),
+            "Platform/NMEA": sg.set_nmea(),
+            "Provenance": sg.set_provenance(),
+            "Sonar": sg.set_sonar(),
+            "Vendor_specific": sg.set_vendor(),
+        }
+        for i, bg in enumerate(beam_groups, start=1):
+            tree[f"Sonar/Beam_group{i}"] = bg
 
-    ed = EchoData(tree=tree, source_file=raw_file, sonar_model=sonar_model)
-    if _should_swap(use_swap, ed):
-        _spill_to_swap(ed)
+        ed = EchoData(tree=tree, source_file=raw_file, sonar_model=sonar_model)
+        if _should_swap(use_swap, ed):
+            _spill_to_swap(ed)
     return ed
 
 

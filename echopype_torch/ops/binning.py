@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import no_tf32, resolve_device
+from ..utils.profiling import stage
 
 __all__ = [
     "banded_x_reduce",
@@ -135,20 +136,21 @@ def _windowed_accumulate(kernel, shape_cpn, n_x: int, x_bounds, chunk_pings: int
     shape_cpn = (C, P, n_r) of the global output layout.
     """
     C, P, n_r = shape_cpn
-    ids = _window_ids(x_bounds, P)
-    outs = [np.zeros((C, n_x, n_r), dtype="f8") for _ in range(n_out)]
-    for lo in range(0, P, chunk_pings):
-        hi = min(lo + chunk_pings, P)
-        ids_c = ids[lo:hi]
-        real = ids_c[(ids_c >= 0) & (ids_c < n_x)]
-        if real.size == 0:
-            continue
-        x_base = int(real[0])
-        window = int(real[-1]) - x_base + 1
-        parts = kernel(lo, hi, (ids_c - x_base).astype("i4"), window)
-        for o, p in zip(outs, parts):
-            o[:, x_base : x_base + window] += _host_f8(p)
-    return outs
+    with stage("bin_device"):  # H2D, the bins, D2H, the float64 adds
+        ids = _window_ids(x_bounds, P)
+        outs = [np.zeros((C, n_x, n_r), dtype="f8") for _ in range(n_out)]
+        for lo in range(0, P, chunk_pings):
+            hi = min(lo + chunk_pings, P)
+            ids_c = ids[lo:hi]
+            real = ids_c[(ids_c >= 0) & (ids_c < n_x)]
+            if real.size == 0:
+                continue
+            x_base = int(real[0])
+            window = int(real[-1]) - x_base + 1
+            parts = kernel(lo, hi, (ids_c - x_base).astype("i4"), window)
+            for o, p in zip(outs, parts):
+                o[:, x_base : x_base + window] += _host_f8(p)
+        return outs
 
 
 def _host_f8(t):
@@ -189,9 +191,10 @@ def _encoded_chunks(er, r_edges, closed, device):
     accumulation does); a ping-invariant grid in float32, the banded matmul.
     """
     dev = resolve_device(device)
-    er_enc, edges = exact_bin_encode_np(er, r_edges, closed)[:2]
-    uniform = er_is_uniform(er_enc)
-    return dev, er_enc, _to_dev(edges, dev), uniform, "f4" if uniform else "f8"
+    with stage("bin_membership"):
+        er_enc, edges = exact_bin_encode_np(er, r_edges, closed)[:2]
+        uniform = er_is_uniform(er_enc)
+        return dev, er_enc, _to_dev(edges, dev), uniform, "f4" if uniform else "f8"
 
 
 def windowed_partials_np(sv, er, r_edges, x_bounds, skipna=True, closed="left",

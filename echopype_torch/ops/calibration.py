@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import stage
 
 __all__ = ["ek_power_cal", "ek_power_cal_torch"]
 
@@ -68,8 +69,9 @@ def ek_power_cal(
     def _t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype="f4")).to(dev)
 
-    out, echo_range = ek_power_cal_torch(
-        _t(power), _t(dr), _t(tvg_shift), _t(absorption), _t(offset),
-        spreading_factor=spreading,
-    )
-    return out.cpu().numpy(), echo_range.cpu().numpy()
+    with stage("power_cal_device"):  # H2D, the sonar equation, D2H
+        out, echo_range = ek_power_cal_torch(
+            _t(power), _t(dr), _t(tvg_shift), _t(absorption), _t(offset),
+            spreading_factor=spreading,
+        )
+        return out.cpu().numpy(), echo_range.cpu().numpy()

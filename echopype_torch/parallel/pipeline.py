@@ -67,6 +67,7 @@ from ..ops.window_partials import (
     window_partials,
     window_partials_uniform,
 )
+from ..utils.profiling import count
 from .mesh import Mesh, check_mesh
 
 __all__ = [
@@ -372,7 +373,11 @@ def _x_rel_np(x_rel, P):
 
 
 def _to_device(ops, dev):
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in ops.items()}
+    """The window step's host operands as tensors on ``dev``; their bytes
+    count as ``h2d_bytes``."""
+    host = {k: np.ascontiguousarray(v) for k, v in ops.items()}
+    count("h2d_bytes", sum(v.nbytes for v in host.values()))
+    return {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
 
 
 def kernel_inputs_from_numpy(power, dr, tvg_shift, absorption, offset, valid_len,

@@ -417,17 +417,20 @@ class _PowerChunkStreamer:
         # the device stage's own name where 4-byte float32 samples go up
         dev_stage = "device_mvbs" if self.ship_i16 else "device_mvbs_f32"
         n_ping = power.shape[1]
-        host_counts = (
-            closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
-            if uniform and fd is None else None
-        )
-        # ragged pings pad with a NaN suffix, so finite-count == valid length
-        valid_len = (~np.isnan(power)).sum(axis=2).astype("i4")
+        with timer.stage("valid_len"):  # a pass over the file's power, and K1's bounds
+            host_counts = (
+                closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
+                if uniform and fd is None else None
+            )
+            # ragged pings pad with a NaN suffix, so finite-count == valid length
+            valid_len = (~np.isnan(power)).sum(axis=2).astype("i4")
         for lo in range(0, n_ping, chunk_pings):
             hi = min(lo + chunk_pings, n_ping)
             pad = chunk_pings - (hi - lo)
             sl = slice(lo, hi)
             x_base = int(x_idx_all[lo])
+            timer.count("staged_pings", chunk_pings)
+            timer.count("padded_pings", pad)
 
             def _pad2(a, fill=0.0):
                 a = np.asarray(a[:, sl], dtype="f4")
@@ -783,7 +786,8 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
     Kernels run on the bound; the exact survey grid (a prefix of it) is
     trimmed at finalize.  Raises _ScanUnavailable when any file is remote,
     corrupt or has no RAW0 data.  The "ingest" stage is timed on the worker
-    thread and overlaps the other stages.
+    thread and overlaps the other stages; "wait_decode" is the main
+    thread's wait for it.
     """
     if any(is_remote_path(f) for f in raw_files):
         raise _ScanUnavailable("remote raw files")
@@ -827,7 +831,8 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
         if len(raw_files) > 1:
             warm_ex.submit(_warm, raw_files[1])
         for i in range(len(raw_files)):
-            power, dr, shift, alpha, offset, _, pt, chans, _ = fut.result()
+            with timer.stage("wait_decode"):
+                power, dr, shift, alpha, offset, _, pt, chans, _ = fut.result()
             if i + 1 < len(raw_files):
                 fut = ex.submit(load, raw_files[i + 1])
             if i + 2 < len(raw_files):
