@@ -4,9 +4,15 @@ Counterpart of ``echopype_tpu/commongrid/api.py`` (reference
 echopype/commongrid/api.py:31-416): the same arguments, attrs, coords and
 provenance, plus ``device=`` ("cuda" by default; "cpu" runs the same torch
 ops on the host).  Bin membership resolves on the host in float64
-(``ops/binning.py::exact_bin_encode_np``); the linear-domain bin sums run
-on ``device`` for ping-invariant range grids and on the host in float64 for
-ping-varying ones, as in the JAX package.
+(``ops/binning.py::exact_bin_encode_np``).  ``compute_MVBS`` takes one of
+two routes, by what the range variable shows: where every ping shares one
+range row (``binning.ping_invariant_row``, exact, NaN holes included; the
+instrument norm) it resolves that [C, R] row once and ships only Sv to
+``device``, where a per-channel 0/1 matmul against the row bins it; where
+the grid varies by ping it resolves every sample of the [C, P, R] range,
+as in the JAX package.  Both give the same bits on a ping-invariant grid.
+The linear-domain bin sums run on ``device`` in float32 for ping-invariant
+grids and in float64 for ping-varying ones.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ import torch
 from ..device import resolve_device
 from ..ops import binning
 from ..utils.compute import _lin2log, _log2lin
-from ..utils.profiling import stage
+from ..utils.profiling import count, stage
 from ..utils.prov import add_processing_level, echopype_prov_attrs, insert_input_processing_level
 from ..xrlite import Dataset
 from .utils import (
@@ -65,7 +71,11 @@ def compute_MVBS(
 
     Linear-domain mean per bin; output coords are bin left edges
     (reference commongrid/api.py:31-191).  ``method`` and ``reindex`` are
-    accepted for the reference's signature and change nothing.
+    accepted for the reference's signature and change nothing.  A range
+    grid that every ping shares is resolved as one [C, R] row, a grid that
+    varies by ping sample by sample (module docstring); the counters
+    ``mvbs_pings`` and ``mvbs_grid_pings`` (``utils.profiling.count``) say
+    how many pings were binned and how many took the row.
     """
     with stage("mvbs_prepare"):
         dev = resolve_device(device)
@@ -73,7 +83,19 @@ def compute_MVBS(
         if not isinstance(ping_time_bin, str):
             raise TypeError("ping_time_bin must be a string")
 
-        er = np.asarray(ds_Sv[range_var].values, dtype="f8")
+        sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
+        # the route, decided exactly on the range variable's own dtype
+        row, grid = binning.ping_invariant_row(np.broadcast_to(
+            _conform_range(np.asarray(ds_Sv[range_var].values), ds_Sv, range_var, sv.shape),
+            sv.shape))
+        if grid:  # every range step on the [C, R] row, held as [C, 1, R]
+            er = er_b = np.asarray(row, dtype="f8")[:, None, :]
+        else:
+            er = np.asarray(ds_Sv[range_var].values, dtype="f8")
+            er_b = np.broadcast_to(_conform_range(er, ds_Sv, range_var, sv.shape), sv.shape)
+        count("mvbs_pings", sv.shape[1])
+        count("mvbs_grid_pings", sv.shape[1] if grid else 0)
+
         if range_var_max is None:
             range_var_max_val = np.nanmax(er)
         else:
@@ -84,11 +106,9 @@ def compute_MVBS(
         ping_edges = ping_time_bin_edges(ping_time, ping_time_bin)
         n_x = len(ping_edges) - 1
 
-        sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
-        er_b = np.broadcast_to(_conform_range(er, ds_Sv, range_var, sv.shape), sv.shape)
-
-        # sorted-contiguous reduction: the ping axis sorted (argsort if not), the
-        # range axis increasing (flipped for an upward-looking instrument)
+        # sorted-contiguous reduction: the ping axis sorted (argsort if not; the
+        # row moves with no ping), the range axis increasing (flipped for an
+        # upward-looking instrument)
         sv, er_b, order = _sort_ping_axis(sv, er_b, ping_time)
         sv, er_b = _orient_range_axis(sv, er_b)
 
@@ -143,12 +163,13 @@ def compute_MVBS(
 
 
 def _sort_ping_axis(sv, er_b, ping_time):
-    """Sort along the ping axis if needed; returns (sv, er, order or None)."""
+    """Sort along the ping axis if needed; returns (sv, er, order or None).
+    A range row ``er_b`` [C, 1, R] is every ping's and stays as it is."""
     pt = ping_time.astype("i8")
     if np.all(np.diff(pt) >= 0):
         return sv, er_b, None
     order = np.argsort(pt, kind="stable")
-    return sv[:, order], er_b[:, order], order
+    return sv[:, order], (er_b if er_b.shape[1] == 1 else er_b[:, order]), order
 
 
 def _orient_range_axis(sv, er_b):

@@ -8,8 +8,13 @@ every ping bin is a contiguous run and reduces by a 0/1 matmul.
   reference's elementwise digitize, shipped as ``idx + 0.5`` against
   integer edges so the device compares exact values), and the ping chunk
   loop :func:`_windowed_accumulate`, whose window partials add up in
-  float64 on the host.  :func:`choose_block_g` picks the block size of
-  :func:`blocked_banded_segment_sum` from the host's bin bounds.
+  float64 on the host.  Membership resolves by one of two routes: on a
+  range grid that every ping shares (:func:`ping_invariant_row`, exact,
+  NaN holes included) once for the [C, R] row
+  (:func:`windowed_partials_grid_np`), and on a grid that varies by ping
+  once per sample of the [C, P, R] range (:func:`windowed_partials_np`,
+  :func:`windowed_sum_raw_np`).  :func:`choose_block_g` picks the block
+  size of :func:`blocked_banded_segment_sum` from the host's bin bounds.
 * Device, plain torch: :func:`_banded_x_reduce_xb` (ping windows) and the
   range bins, by one of two rules: on a ping-invariant grid a per-channel
   0/1 matmul against the grid row (:func:`_uniform_bin_matmul`; the survey
@@ -56,7 +61,9 @@ __all__ = [
     "choose_block_g",
     "er_is_uniform",
     "exact_bin_encode_np",
+    "ping_invariant_row",
     "row_bin_bounds",
+    "windowed_partials_grid_np",
     "windowed_partials_np",
     "windowed_sum_raw_np",
     "x_bounds_np",
@@ -121,6 +128,40 @@ def er_is_uniform(er) -> bool:
         warnings.simplefilter("ignore", category=RuntimeWarning)
         ref = np.nanmax(er, axis=1)  # [C, R]
     return bool(np.all(np.isnan(er) | (er == ref[:, None, :])))
+
+
+#: pings compared at a time by :func:`ping_invariant_row`
+_ROW_BLOCK_PINGS = 256
+
+
+def ping_invariant_row(er):
+    """([C, R] row, ok) of a [C, P, R] range operand: ``ok`` when every
+    ping equals ping 0's row, NaN where the row is NaN and nowhere else.
+
+    Exact, on the operand's own dtype: the pings are compared in blocks of
+    256 against the row (no [C, P, R] temporary), and the test stops at the
+    first block that differs.  A ping axis of stride 0 (a range variable
+    without a ping dim, broadcast against Sv) is a row already.  A grid
+    whose values or holes vary by ping (a sound-speed update, a short ping)
+    gives ``ok`` False, and so does an operand with no ping (row None).
+    """
+    er = np.asarray(er)
+    P = er.shape[1]
+    if P == 0:
+        return None, False
+    row = er[:, 0]
+    if P == 1 or er.strides[1] == 0:
+        return row, True
+    row_b, row_nan = row[:, None, :], None
+    for lo in range(1, P, _ROW_BLOCK_PINGS):
+        blk = er[:, lo : lo + _ROW_BLOCK_PINGS]
+        same = blk == row_b
+        if not same.all():
+            if row_nan is None:
+                row_nan = np.isnan(row_b)
+            if not (same | (np.isnan(blk) & row_nan)).all():
+                return row, False
+    return row, True
 
 
 def _window_ids(x_bounds, P: int) -> np.ndarray:
@@ -202,16 +243,50 @@ def windowed_partials_np(sv, er, r_edges, x_bounds, skipna=True, closed="left",
     """(sums, counts, nan_counts) float64 [C, n_x, n_r] of linear Sv per bin.
 
     Membership resolves on the host in float64 (:func:`exact_bin_encode_np`;
-    pass ``er`` and ``r_edges`` at full precision); :func:`binned_window_partials`
-    runs on ``device`` chunk by chunk, each bin accumulating independently,
-    and the chunks' partials add up in float64 on the host.
+    pass ``er`` and ``r_edges`` at full precision), once per sample of a
+    [C, P, R] ``er``; :func:`binned_window_partials` runs on ``device``
+    chunk by chunk, each bin accumulating independently, and the chunks'
+    partials add up in float64 on the host.  An ``er`` of one ping,
+    [C, 1, R], is the range row every ping of ``sv`` shares:
+    :func:`windowed_partials_grid_np` bins it.
     """
+    if np.ndim(er) == 3 and np.shape(er)[1] == 1:
+        return windowed_partials_grid_np(sv, np.asarray(er)[:, 0], r_edges, x_bounds,
+                                         skipna=skipna, closed=closed,
+                                         chunk_pings=chunk_pings, device=device)
     dev, er, edges_t, uniform, dtype = _encoded_chunks(er, r_edges, closed, device)
 
     def kernel(lo, hi, x_rel, window):
         return binned_window_partials(
             _to_dev(sv[:, lo:hi], dev, dtype), _to_dev(er[:, lo:hi], dev), edges_t,
             _to_dev(x_rel, dev, "i4"), window, skipna=skipna, closed=closed, uniform_er=uniform,
+        )
+
+    return _windowed_accumulate(kernel, (sv.shape[0], sv.shape[1], len(edges_t) - 1),
+                                len(x_bounds) - 1, x_bounds, chunk_pings, 3)
+
+
+def windowed_partials_grid_np(sv, row, r_edges, x_bounds, skipna=True, closed="left",
+                              chunk_pings=8192, device="cuda"):
+    """:func:`windowed_partials_np` on one range row [C, R] that every ping
+    of ``sv`` [C, P, R] shares (decide with :func:`ping_invariant_row`).
+
+    Membership resolves on the host in float64 for the row alone, and only
+    Sv and the window ids go to ``device``, where
+    :func:`binned_window_partials_grid` bins each chunk against the encoded
+    row.  Its inputs equal the uniform route's on the row broadcast over
+    the pings, so the partials are bit-identical to
+    :func:`windowed_partials_np`'s there.
+    """
+    dev = resolve_device(device)
+    with stage("bin_membership"):
+        row_enc, edges = exact_bin_encode_np(row, r_edges, closed)[:2]
+        grid_t, edges_t = _to_dev(row_enc, dev), _to_dev(edges, dev)
+
+    def kernel(lo, hi, x_rel, window):
+        return binned_window_partials_grid(
+            _to_dev(sv[:, lo:hi], dev), grid_t, edges_t, _to_dev(x_rel, dev, "i4"), window,
+            skipna=skipna, closed=closed,
         )
 
     return _windowed_accumulate(kernel, (sv.shape[0], sv.shape[1], len(edges_t) - 1),

@@ -20,6 +20,7 @@ import echopype_torch as et
 import echopype_tpu as ep
 from echopype_torch.commongrid import utils as tu
 from echopype_torch.ops import binning as tb
+from echopype_torch.utils import profiling
 from echopype_tpu.commongrid import utils as ju
 from echopype_torch.xrlite import Dataset as TDataset
 from echopype_tpu.ops import binning as jb
@@ -135,6 +136,15 @@ def _mvbs_case(name, Dataset):
         ds = make_sv_dataset_(seed=5)
         ds.data_vars["Sv"].values[:, 3, 70:] = np.nan
         ds.data_vars["echo_range"].values[:, 3, 70:] = np.nan
+    elif name == "upward_looking_holes":  # a decreasing row, the same NaN holes in every ping
+        ds = make_sv_dataset_(seed=6)
+        er = np.asarray(ds["echo_range"].values)[:, :, ::-1].copy()
+        er[:, :, :7] = np.nan
+        er[0, :, 40] = np.nan
+        ds["echo_range"] = (("channel", "ping_time", "range_sample"), er)
+    elif name == "range_sample_row":  # echo_range a float32 row with neither channel nor ping
+        ds, kw = make_sv_dataset_(seed=8), dict(range_bin="3m")
+        ds["echo_range"] = (("range_sample",), np.arange(100, dtype="f4") * np.float32(0.37))
     elif name == "no_latlon":
         ds = make_sv_dataset_(with_latlon=False)
     elif name == "level_2b":
@@ -150,7 +160,7 @@ def _mvbs_case(name, Dataset):
 MVBS_CASES = ["default", "closed_right", "skipna_false", "range_var_max", "fill_value",
               "fill_value_skipna_false", "depth", "range_row", "unsorted_pings",
               "upward_looking", "ping_varying_grid", "ragged_nan_range", "no_latlon",
-              "level_2b", "time_bin_30s"]
+              "level_2b", "time_bin_30s", "upward_looking_holes", "range_sample_row"]
 
 
 def _attrs(a):
@@ -213,6 +223,47 @@ class TestComputeMVBS:
         n_t, n_r = min(got.shape[1], want.shape[1]), min(got.shape[2], want.shape[2])
         np.testing.assert_allclose(got[:, :n_t, :n_r], want[:, :n_t, :n_r], rtol=0, atol=2e-5,
                                    equal_nan=True)
+
+    @pytest.mark.parametrize("case, grid", [("shared_holes", True), ("ragged_ping", False),
+                                            ("sound_speed_ping", False)])
+    def test_route_decision(self, monkeypatch, case, grid):
+        """The [C, R] row route is taken exactly when every ping shares the
+        range row, NaN holes included, and either route gives the output of
+        the per-sample route, bit for bit."""
+        ds = make_sv_dataset(TDataset, seed=7)
+        er, sv = ds.data_vars["echo_range"].values, ds.data_vars["Sv"].values
+        if case == "shared_holes":
+            er[:, :, 85:] = np.nan
+            er[1, :, 30] = np.nan
+        elif case == "ragged_ping":  # one short ping
+            er[:, 5, 70:] = np.nan
+            sv[:, 5, 70:] = np.nan
+        else:  # one ping at another sound speed: a scaled row
+            er[:, 9] *= 1495.0 / 1480.0
+        rows = []
+        orig = tb.windowed_partials_grid_np
+        monkeypatch.setattr(tb, "windowed_partials_grid_np",
+                            lambda sv, row, *a, **kw: rows.append(row) or orig(sv, row, *a, **kw))
+        got = np.asarray(et.compute_MVBS(ds, device="cpu")["Sv"].values)
+        assert len(rows) == int(grid)
+        if grid:
+            np.testing.assert_array_equal(rows[0], er[:, 0])
+        monkeypatch.setattr(tb, "ping_invariant_row", lambda er: (None, False))
+        want = np.asarray(et.compute_MVBS(ds, device="cpu")["Sv"].values)
+        assert len(rows) == int(grid)
+        np.testing.assert_array_equal(got, want)
+        assert np.isfinite(got).any()
+
+    @pytest.mark.parametrize("case, grid", [("default", True), ("ping_varying_grid", False)])
+    def test_route_counters(self, tmp_path, case, grid):
+        """``mvbs_pings`` counts the pings binned, ``mvbs_grid_pings`` those
+        that took the row route, in a profiler window."""
+        ds, kw = _mvbs_case(case, TDataset)
+        with profiling.trace(str(tmp_path)):
+            et.compute_MVBS(ds, device="cpu", **kw)
+        n = ds.sizes["ping_time"]
+        assert profiling.TRACED.counters["mvbs_pings"] == n
+        assert profiling.TRACED.counters["mvbs_grid_pings"] == (n if grid else 0)
 
     def test_attrs_and_levels(self):
         mvbs = et.compute_MVBS(make_sv_dataset(TDataset), device="cpu")
@@ -435,6 +486,49 @@ class TestBinningOps:
         got = tb._sample_bin_sums(torch.from_numpy(er), torch.from_numpy(edges), closed)(
             torch.ones(er.shape, dtype=torch.float64))
         np.testing.assert_array_equal(got.numpy(), want)
+
+    @pytest.mark.parametrize("case, ok", [
+        ("uniform", True), ("broadcast_row", True), ("signed_zero", True),
+        ("last_ping_differs", False), ("nan_where_row_finite", False),
+        ("finite_where_row_nan", False),
+    ])
+    def test_ping_invariant_row(self, case, ok):
+        """Every ping equal to ping 0's row by value, NaN exactly where the
+        row is NaN; a difference in the last of several blocks counts."""
+        er = np.broadcast_to(np.arange(30, dtype="f4") * 0.5, (2, 600, 30)).copy()
+        er[:, :, 25:] = np.nan
+        if case == "broadcast_row":
+            er = np.broadcast_to(er[:, :1], er.shape)
+        elif case == "signed_zero":
+            er[1, 300:, 0] = -0.0
+        elif case == "last_ping_differs":
+            er[1, 599, 3] = np.nextafter(er[1, 599, 3], np.float32(9))
+        elif case == "nan_where_row_finite":
+            er[0, 400, 24] = np.nan
+        elif case == "finite_where_row_nan":
+            er[0, 257, 26] = 13.0
+        row, got = tb.ping_invariant_row(er)  # three blocks of 256 pings
+        assert got is ok
+        np.testing.assert_array_equal(row, er[:, 0])
+
+    @pytest.mark.parametrize("skipna", [True, False])
+    @pytest.mark.parametrize("closed", ["left", "right"])
+    def test_windowed_partials_grid_np(self, closed, skipna):
+        """The row route's partials are the per-sample route's on the row
+        broadcast over the pings, bit for bit, over five ping chunks."""
+        sv, er, edges, _, _ = self._chunk(seed=6, P=70)
+        row = er[:, 0].astype("f8")
+        row[:, 50:] = np.nan  # holes shared by every ping
+        row[1, 17] = np.nan
+        x_bounds = np.array([0, 9, 9, 30, 55, 66])
+        kw = dict(skipna=skipna, closed=closed, chunk_pings=16, device="cpu")
+        want = tb.windowed_partials_np(sv, np.broadcast_to(row[:, None], sv.shape), edges,
+                                       x_bounds, **kw)
+        for got in (tb.windowed_partials_grid_np(sv, row, edges, x_bounds, **kw),
+                    tb.windowed_partials_np(sv, row[:, None], edges, x_bounds, **kw)):
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        assert want[1].sum() > 0
 
     @pytest.mark.parametrize("uniform", [True, False])
     def test_windowed_partials_np(self, uniform):
