@@ -16,6 +16,7 @@ from pathlib import Path
 import numpy as np
 
 from ..utils.log import _init_logger
+from ..utils.profiling import stage
 from .simrad import framing
 from .simrad import decode as dec
 from .simrad.xml_config import parse_xml_datagram
@@ -67,7 +68,8 @@ class ParseEK80:
         index = framing.scan_datagrams(buf)
 
         self._parse_xml_stream(index)
-        self._parse_raw3(index, raw_type="RAW3")
+        with stage("ek80_raw3"):  # headers, samples and bound parameters of every RAW3
+            self._parse_raw3(index, raw_type="RAW3")
         self._parse_raw3(index, raw_type="RAW4")
 
         nme_rows = index.select("NME0")

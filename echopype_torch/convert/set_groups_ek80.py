@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils.log import _init_logger
+from ..utils.profiling import stage
 from ..xrlite import DataArray, Dataset
 from .set_groups_base import SetGroupsBase
 
@@ -350,7 +351,8 @@ class SetGroupsEK80(SetGroupsBase):
         complex_ch = self.sorted_channel["complex"]
         if complex_ch:
             for mode, want in (("complex_FM", "LFM"), ("complex_CW", "CW")):
-                ds = self._assemble_complex_group(complex_ch, want)
+                with stage("ek80_beam_complex"):
+                    ds = self._assemble_complex_group(complex_ch, want)
                 if ds is not None:
                     groups.append((mode, ds))
         power_ch = self.sorted_channel["power"]

@@ -21,6 +21,13 @@ pass), any case, or a ``jax.lax.Precision`` of those names
 (``ops/matched_filter.py`` says what each computes); any other value raises
 ``ValueError``.  The value applies to this call only: compute_Sv's
 precision (``matched_filter.set_conv_precision``) stays as it was.
+
+Stages (``utils.profiling.stage``, no timer, so an untraced call pays one
+check each): ``bb_h2d`` (the chunk's samples to the device; counter
+``bb_h2d_bytes``), ``bb_compress`` (NaN fill, the matched filter, the
+norm) and ``bb_sv_bins`` (sector mean, prx, Sv and, in
+:func:`bb_chunk_window_partials`, the bins).  Under a profiler the last two
+end when the card has finished their work.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import count, stage
 from .binning import binned_window_partials
 from .matched_filter import _leading_zeros, _parse_precision, _toeplitz_conv
 
@@ -41,32 +49,48 @@ def _on(dev, a, dtype=torch.float32):
     return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
 
-def _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset, k0,
-                      valid_len, do_pc, precision=None, block_t=0, device="cuda"):
-    """Shared complex -> Sv body: returns (sv, er) float32 [P, R] on
-    ``device``.  hr, hi: the flipped-conjugated replica (host arrays)."""
-    precision = _parse_precision(precision)
-    dev = resolve_device(device)
+def _compressed(bs_r, bs_i, hr, hi, inv_norm, do_pc, precision, block_t, dev):
+    """The chunk's complex samples on ``dev``, NaN zero-filled and, with
+    ``do_pc``, pulse-compressed and normalised: (xr, xi) float32 [P, R, B].
+    Stages ``bb_h2d`` (the samples to the device; counter ``bb_h2d_bytes``,
+    the bytes taken from outside ``dev``) and ``bb_compress``."""
     f = lambda a: _on(dev, a)  # noqa: E731
-    bs_r, bs_i = f(bs_r), f(bs_i)
-    P, R, B = bs_r.shape
-    xr = torch.where(torch.isnan(bs_r), 0.0, bs_r)
-    xi = torch.where(torch.isnan(bs_i), 0.0, bs_i)
+    with stage("bb_h2d"):
+        count("bb_h2d_bytes", sum(_outside_bytes(a, dev) for a in (bs_r, bs_i)))
+        bs_r, bs_i = f(bs_r), f(bs_i)
+    with stage("bb_compress") as held:
+        P, R, B = bs_r.shape
+        xr = torch.where(torch.isnan(bs_r), 0.0, bs_r)
+        xi = torch.where(torch.isnan(bs_i), 0.0, bs_i)
+        if do_pc:
+            hr_h = hr.cpu().numpy() if isinstance(hr, torch.Tensor) else np.asarray(hr)
+            hi_h = hi.cpu().numpy() if isinstance(hi, torch.Tensor) else np.asarray(hi)
+            # the replica's exact-zero leading taps are the tail of hr + i hi
+            z = _leading_zeros((hr_h + 1j * hi_h)[::-1])
+            lanes_r = xr.permute(0, 2, 1).reshape(P * B, R)
+            lanes_i = xi.permute(0, 2, 1).reshape(P * B, R)
+            L = hr_h.shape[0]
+            re, im = _toeplitz_conv(lanes_r, lanes_i, f(hr_h), f(hi_h), L - 1, R,
+                                    block_t=block_t, tail_zeros=z, precision=precision)
+            inv = f(inv_norm)
+            xr = re.reshape(P, B, R).permute(0, 2, 1) * inv
+            xi = im.reshape(P, B, R).permute(0, 2, 1) * inv
+        if held is not None:  # traced: the stage ends when the card has compressed
+            held += [xr, xi]
+    return xr, xi
 
-    if do_pc:
-        hr_h = hr.cpu().numpy() if isinstance(hr, torch.Tensor) else np.asarray(hr)
-        hi_h = hi.cpu().numpy() if isinstance(hi, torch.Tensor) else np.asarray(hi)
-        # the replica's exact-zero leading taps are the tail of hr + i hi
-        z = _leading_zeros((hr_h + 1j * hi_h)[::-1])
-        lanes_r = xr.permute(0, 2, 1).reshape(P * B, R)
-        lanes_i = xi.permute(0, 2, 1).reshape(P * B, R)
-        L = hr_h.shape[0]
-        re, im = _toeplitz_conv(lanes_r, lanes_i, f(hr_h), f(hi_h), L - 1, R,
-                                block_t=block_t, tail_zeros=z, precision=precision)
-        inv = f(inv_norm)
-        xr = re.reshape(P, B, R).permute(0, 2, 1) * inv
-        xi = im.reshape(P, B, R).permute(0, 2, 1) * inv
 
+def _outside_bytes(a, dev):
+    """Bytes of ``a`` that a copy to ``dev`` moves (0 where it is there)."""
+    if isinstance(a, torch.Tensor):
+        return 0 if a.device == dev else a.numel() * 4
+    return int(np.size(a)) * 4
+
+
+def _sv(xr, xi, z_coef, dr, shift, alpha, offset, k0, valid_len, dev):
+    """(sv, er) float32 [P, R] of the compressed chunk."""
+    f = lambda a: _on(dev, a)  # noqa: E731
+    R = xr.shape[1]
     mean_r = xr.mean(dim=2)  # beam-sector mean [P, R]
     mean_i = xi.mean(dim=2)
     prx = (mean_r * mean_r + mean_i * mean_i) * f(z_coef)[:, None]
@@ -94,8 +118,11 @@ def bb_chunk_sv(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset, 
                 valid_len, do_pc: bool, precision=None, device="cuda"):
     """One channel's chunk complex -> (Sv, echo_range) float32 [P, R] on
     ``device``, without binning (for a cross-channel mask before the bins)."""
-    return _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset,
-                             k0, valid_len, do_pc, precision, device=device)
+    dev = resolve_device(device)
+    xr, xi = _compressed(bs_r, bs_i, hr, hi, inv_norm, do_pc, _parse_precision(precision), 0,
+                         dev)
+    with stage("bb_sv_bins"):
+        return _sv(xr, xi, z_coef, dr, shift, alpha, offset, k0, valid_len, dev)
 
 
 def bb_chunk_window_partials(
@@ -119,11 +146,15 @@ def bb_chunk_window_partials(
 ):
     """Returns (sums, counts) float64 [n_x_window, n_r] on ``device``
     (:func:`binned_window_partials` adds the pings' range sums in float64)."""
-    sv, er = _bb_chunk_sv_impl(bs_r, bs_i, hr, hi, inv_norm, z_coef, dr, shift, alpha, offset,
-                               k0, valid_len, do_pc, precision, block_t=block_t, device=device)
-    dev = sv.device
-    sums, counts, _ = binned_window_partials(
-        sv[None], er[None], _on(dev, r_edges), _on(dev, x_rel, torch.int32), n_x_window,
-        uniform_er=uniform_er,
-    )
+    dev = resolve_device(device)
+    xr, xi = _compressed(bs_r, bs_i, hr, hi, inv_norm, do_pc, _parse_precision(precision),
+                         block_t, dev)
+    with stage("bb_sv_bins") as held:
+        sv, er = _sv(xr, xi, z_coef, dr, shift, alpha, offset, k0, valid_len, dev)
+        sums, counts, _ = binned_window_partials(
+            sv[None], er[None], _on(dev, r_edges), _on(dev, x_rel, torch.int32), n_x_window,
+            uniform_er=uniform_er,
+        )
+        if held is not None:  # traced: the stage ends when the bins are summed
+            held += [sums, counts]
     return sums[0], counts[0]

@@ -74,7 +74,7 @@ from ..utils.compute import _lin2log
 from ..utils.geodesy import pairwise_distance_nmi
 from ..utils.io import is_remote_path, open_source
 from ..utils.log import _init_logger
-from ..utils.profiling import StageTimer
+from ..utils.profiling import StageTimer, stage
 from ..utils.prov import echopype_prov_attrs
 from ..xrlite import Dataset
 from .mesh import Mesh, check_mesh
@@ -1093,12 +1093,13 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
             slice_dicts = (epoch_slice_dicts(ed[bp], ed["Vendor_specific"])
                            if _n_filter_times(ed) > 1 else [{}])
             for sd in slice_dicts:
-                cal = CalibrateEK80(ed, sv_kw["env_params"], sv_kw["cal_params"],
-                                    waveform_mode=waveform_mode,
-                                    encode_mode=sv_kw["encode_mode"], slice_dict=sd)
-                if cal.beam.sizes["ping_time"] == 0:
-                    continue
-                scal = cal._complex_sv_scalars()
+                with stage("bb_params"):
+                    cal = CalibrateEK80(ed, sv_kw["env_params"], sv_kw["cal_params"],
+                                        waveform_mode=waveform_mode,
+                                        encode_mode=sv_kw["encode_mode"], slice_dict=sd)
+                    if cal.beam.sizes["ping_time"] == 0:
+                        continue
+                    scal = cal._complex_sv_scalars()
                 cals.append(cal)
                 scals.append(scal)
                 # the last sample sits at (R - 1) * dr
@@ -1118,32 +1119,34 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
         with timer.stage("param_resolution"):
             beam = cal.beam
             n_ch, n_ping = beam.sizes["channel"], beam.sizes["ping_time"]
-            n_beam = beam.sizes.get("beam", 1)
-            # per-ping impedance coefficient of prx (calibrate_ek.py:456-505)
-            z_er = cal._to_cp(scal["z_er"], n_ch, n_ping)
-            z_et = cal._to_cp(scal["z_et"], n_ch, n_ping)
-            z_coef = (n_beam / 8.0 * (np.abs(z_er + z_et) / z_er) ** 2 / z_et).astype("f4")
-            norm = get_norm_fac(scal["tx"])
             ch_ids = [str(c) for c in beam.coords["channel"].values]
-            bs_r_all = np.asarray(beam["backscatter_r"].values, dtype="f4")
-            bs_i_all = np.asarray(beam["backscatter_i"].values, dtype="f4")
-            if bs_r_all.ndim == 3:  # no beam dim: one sector
-                bs_r_all, bs_i_all = bs_r_all[..., None], bs_i_all[..., None]
-            valid_len = (~np.isnan(bs_r_all[..., 0])).sum(axis=2).astype("i4")
-            dr, shift, alpha, offset = (scal[k].astype("f4")
-                                        for k in ("dr", "shift", "alpha", "offset"))
-            # the first sample with r_tvg > 0, decided in float64 (the
-            # chunked path's boundary sample)
-            k0 = np.maximum(np.floor(scal["shift"] / np.maximum(scal["dr"], 1e-30)) + 1,
-                            0).astype("i4")
-            uniform_er = bool(np.all(dr == dr[:, :1]))
-            reps = []
-            for cid in ch_ids:
-                rep = np.flipud(np.conj(np.asarray(scal["tx"][cid])))
-                reps.append((
-                    *(np.ascontiguousarray(a, dtype="f4") for a in (rep.real, rep.imag)),
-                    np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0,
-                ))
+            with stage("bb_params"):  # prx's impedance term, the replicas and their norms
+                n_beam = beam.sizes.get("beam", 1)
+                # per-ping impedance coefficient of prx (calibrate_ek.py:456-505)
+                z_er = cal._to_cp(scal["z_er"], n_ch, n_ping)
+                z_et = cal._to_cp(scal["z_et"], n_ch, n_ping)
+                z_coef = (n_beam / 8.0 * (np.abs(z_er + z_et) / z_er) ** 2 / z_et).astype("f4")
+                norm = get_norm_fac(scal["tx"])
+                dr, shift, alpha, offset = (scal[k].astype("f4")
+                                            for k in ("dr", "shift", "alpha", "offset"))
+                uniform_er = bool(np.all(dr == dr[:, :1]))
+                reps = []
+                for cid in ch_ids:
+                    rep = np.flipud(np.conj(np.asarray(scal["tx"][cid])))
+                    reps.append((
+                        *(np.ascontiguousarray(a, dtype="f4") for a in (rep.real, rep.imag)),
+                        np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0,
+                    ))
+            with stage("bb_host_stage"):  # float32 samples, valid lengths, TVG boundary
+                bs_r_all = np.asarray(beam["backscatter_r"].values, dtype="f4")
+                bs_i_all = np.asarray(beam["backscatter_i"].values, dtype="f4")
+                if bs_r_all.ndim == 3:  # no beam dim: one sector
+                    bs_r_all, bs_i_all = bs_r_all[..., None], bs_i_all[..., None]
+                valid_len = (~np.isnan(bs_r_all[..., 0])).sum(axis=2).astype("i4")
+                # the first sample with r_tvg > 0, decided in float64 (the
+                # chunked path's boundary sample)
+                k0 = np.maximum(np.floor(scal["shift"] / np.maximum(scal["dr"], 1e-30)) + 1,
+                                0).astype("i4")
         if fd is not None:
             masked = _fd_mask(fd)
             r_edges_t = binning._to_dev(r_edges_f4, dev)
