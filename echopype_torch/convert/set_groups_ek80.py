@@ -11,6 +11,7 @@ on ``cal_frequency``, and WBT/PC filter coefficients + decimation on
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..utils.log import _init_logger
 from ..utils.profiling import stage
@@ -442,14 +443,20 @@ class SetGroupsEK80(SetGroupsBase):
             if not covered.all():
                 bs_r[ci, ~covered] = np.nan
                 bs_i[ci, ~covered] = np.nan
-            bs_r[ci, rows_dst, :r, :b] = comp["real"][rows_src]
-            bs_i[ci, rows_dst, :r, :b] = comp["imag"][rows_src]
-            if r < max_r:
-                bs_r[ci, rows_dst, r:] = np.nan
-                bs_i[ci, rows_dst, r:] = np.nan
-            if b < n_beam:
-                bs_r[ci, rows_dst, :r, b:] = np.nan
-                bs_i[ci, rows_dst, :r, b:] = np.nan
+            # the parser's float32 widened once, run by run where the parser's
+            # rows and the group's pings both advance by one: torch's CPU
+            # copy does it, and the first touch of the fresh group's pages,
+            # on the intra-op threads, over the host's cores
+            cut = np.flatnonzero((np.diff(rows_src) != 1) | (np.diff(rows_dst) != 1)) + 1
+            for s0, s1 in zip(np.r_[0, cut], np.r_[cut, len(rows_src)]):
+                src = slice(rows_src[s0], rows_src[s1 - 1] + 1)
+                dst = slice(rows_dst[s0], rows_dst[s1 - 1] + 1)
+                for bs, part in ((bs_r, comp["real"]), (bs_i, comp["imag"])):
+                    torch.from_numpy(bs[ci, dst, :r, :b]).copy_(torch.from_numpy(part[src]))
+                    if r < max_r:
+                        bs[ci, dst, r:] = np.nan
+                    if b < n_beam:
+                        bs[ci, dst, :r, b:] = np.nan
             self._per_ping_vars_subset(ch, rows_src, rows_dst, n_t, arrays, len(chans_used))
             tx_type[ci, rows_dst] = want_type
             if want_type == "LFM":

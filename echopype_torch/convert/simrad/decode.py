@@ -328,7 +328,9 @@ def decode_raw3_samples(index: DatagramIndex, rows: np.ndarray, hdr: np.ndarray)
     follow the format spec instead.
 
     Returns dict with keys power [N,R], angle [N,R,2], complex_r/complex_i
-    [N,R,n_complex] (None where absent).
+    [N,R,n_complex] (None where absent).  The complex parts are float32
+    views of one interleaved [N,R,n_complex,2] buffer, NaN past each ping's
+    count.
     """
     u8 = np.frombuffer(index.buf, dtype="u1")
     offs = index.body_offset[rows]
@@ -377,9 +379,10 @@ def decode_raw3_samples(index: DatagramIndex, rows: np.ndarray, hdr: np.ndarray)
             vals, valid = _gather_f16_as_f32(u8, pos, n_vals, max_vals)
             vals = np.where(valid, vals, np.nan)
         vals = vals.reshape(len(rows), max_count, n_complex, 2)
-        # reference upcasts complex parts to f64 with imag-of-padding NaN
-        out["complex_r"] = vals[..., 0].astype("f8")
-        out["complex_i"] = vals[..., 1].astype("f8")
+        # float32 views of the gather, no copy: set-groups widens them to
+        # float64 once, as it fills the beam group
+        out["complex_r"] = vals[..., 0]
+        out["complex_i"] = vals[..., 1]
     return out
 
 
