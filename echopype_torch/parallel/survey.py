@@ -12,14 +12,16 @@ Counterpart of ``echopype_tpu/parallel/survey.py``.  Two families:
   others take the per-ping route.  No CUDA kernel of the port runs here:
   the bin sums are plain torch (``binned_window_partials*``).
 * Raw files -> MVBS (:func:`run_survey_mvbs_from_raw`).  Power mode
-  (EK60/ES70, and the power channels of EK80/ES80/EA640): the single-pass
-  streamer with a decode-ahead thread (``prefetch=True``, local EK60/ES70
-  files) or the eager two-pass path, whose decode can run in a spawned
-  process pool (``workers=``).  Per file, calibration parameters
+  (EK60/ES70, and the power channels of EK80/ES80/EA640): one file loop
+  streams the decoded files on a survey plan, which comes either from a
+  header-only extent scan, each file then decoding on a background thread
+  while the one before streams (``prefetch=True``, local EK60/ES70 files),
+  or from every file decoded first, in process or in a spawned process
+  pool (``workers=``).  Per file, calibration parameters
   resolve on the host; each ping chunk ships as int16 to the device, where
   one fused kernel (K1 for per-channel uniform ``dr``, K2 otherwise)
   returns its [C, window, n_r] bin partials; Sv is never materialized.
-  AZFP/AZFP6 take the eager path: their power ships as NaN-padded float32
+  AZFP/AZFP6 decode first: their power ships as NaN-padded float32
   dB (their counts are no int16 indices) and every chunk runs K2's float32
   instance with the echo_range intercept ``r0``.
   EK80 complex / broadband channels: either each ping chunk calibrates
@@ -33,13 +35,15 @@ Both families take the JAX package's masking options.  ``freq_diff`` (a
 frequency-differencing criterion) masks Sv on the device before the bins:
 on the Sv stores and the complex chunks a cross-channel mask of the chunk's
 Sv, in power mode a step that fuses the mask into the calibration
-(``pipeline.sv_mvbs_window_partials_freqdiff``, on the eager path instead
-of K1/K2).  ``noise_masks`` runs the ``clean`` masks on each whole file
+(``pipeline.sv_mvbs_window_partials_freqdiff``, on decoded-first files,
+instead of K1/K2).  ``noise_masks`` runs the ``clean`` masks on each whole file
 (their windows need the file's context) and NaNs the flagged samples; the
 raw streamer then calibrates every file to Sv first and streams those.
 
-All three take ``mesh=`` (``parallel.make_mesh``): each chunk, rounded up
-to a multiple of the ping shards (``_mesh_layout``), splits over the mesh's
+Every route follows one :class:`_SurveyPlan`: the survey's global bins,
+each unit's chunks and the window they span.  All three take ``mesh=``
+(``parallel.make_mesh``): each chunk, rounded up to a multiple of the ping
+shards (``_mesh_layout``), splits over the mesh's
 (ping, channel) blocks and every block runs the chunk's step on its device
 (``pipeline.sharded_*``: K1 / K2 once a block in power mode, the freq-diff
 step, the Sv binning); the blocks' partials add up on the mesh's first
@@ -53,8 +57,8 @@ them later without a buffer being overwritten while a copy reads it.
 
 from __future__ import annotations
 
+import contextlib
 import os
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -180,10 +184,66 @@ def _mesh_layout(mesh, chunk_pings: int, n_channels: int) -> int:
     return -(-chunk_pings // ping_shards) * ping_shards
 
 
-def _ping_pad(n, mesh):
-    """Pings to add to a chunk of ``n`` so that it splits over the mesh's
-    ping shards (0 without a mesh)."""
-    return 0 if mesh is None else -n % mesh.shape["ping"]
+class _SurveyPlan:
+    """The survey's bin grid and chunk rule, which every streamer follows.
+
+    ``x_ids[u]`` holds the global x bin (a ping-time or a distance bin) of
+    every ping of streamed unit ``u`` (a file, or a (channel, filter epoch)
+    unit), in ping order, and ``times[u]`` its ping times where the plan
+    has them.  The x bins are ``x_edges``; the range bins step by
+    ``range_bin_m`` from 0 past ``r_max``, and cover echo ranges up to
+    ``r_bound``.  A unit streams in chunks of ``chunk_pings`` pings,
+    rounded up to a multiple of the mesh's ping shards; the widest chunk of
+    any unit spans ``window`` x bins (the kernels' static W), and a padded
+    ping parks at ``window``, past every bin of its chunk.
+    """
+
+    def __init__(self, x_ids, x_edges, r_max, range_bin_m, chunk_pings, n_channels, mesh=None,
+                 times=None):
+        self.x_ids, self.x_edges, self.times, self.mesh = x_ids, x_edges, times, mesh
+        self.range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
+        self.r_bound = max(r_max, self.range_edges[-1])
+        self.n_x, self.n_r = len(x_edges) - 1, len(self.range_edges) - 1
+        self.chunk_pings = _mesh_layout(mesh, chunk_pings, n_channels)
+        spans = (int(x_rel[-1]) + 1 for x in x_ids for *_, x_rel in self.chunks(x))
+        self.window = max([1, *spans])
+
+    @classmethod
+    def over_ping_time(cls, ping_times, ping_time_bin, r_max, range_bin_m, chunk_pings,
+                       n_channels, mesh=None, unit_times=None):
+        """The plan of files whose pings are at ``ping_times``: ping-time bins
+        of ``ping_time_bin`` over the survey's span, and the units' x bins
+        from their pings' times, ``unit_times`` (the files themselves by
+        default)."""
+        span = [min(pt.min() for pt in ping_times), max(pt.max() for pt in ping_times)]
+        ping_edges = ping_time_bin_edges(np.array(span, dtype="datetime64[ns]"), ping_time_bin)
+        edges_i8 = ping_edges.astype("i8")
+        unit_times = ping_times if unit_times is None else unit_times
+        x_ids = [_global_ping_bins(pt.astype("i8"), edges_i8, len(ping_edges) - 1)
+                 for pt in unit_times]
+        return cls(x_ids, ping_edges, r_max, range_bin_m, chunk_pings, n_channels, mesh,
+                   unit_times)
+
+    def accumulator(self, n_channels, timer, n_out=2):
+        """The survey's host float64 sums over the plan's bins."""
+        return _PartialAccumulator(n_channels, self.n_x, self.n_r, self.window, timer, n_out)
+
+    def chunks(self, x_ids):
+        """Each chunk of a unit whose pings have x bins ``x_ids``: (its ping
+        slice, its first ping's bin ``x_base``, its bins relative to it)."""
+        for lo in range(0, len(x_ids), self.chunk_pings):
+            sl = slice(lo, min(lo + self.chunk_pings, len(x_ids)))
+            x_base = int(x_ids[lo])
+            yield sl, x_base, x_ids[sl] - x_base
+
+    def mesh_pad(self, n):
+        """Pings to add to a chunk of ``n`` so that it splits over the mesh's
+        ping shards (0 without a mesh)."""
+        return 0 if self.mesh is None else -n % self.mesh.shape["ping"]
+
+    def park(self, x_rel, pad):
+        """``x_rel`` with ``pad`` padded pings parked at ``window``."""
+        return np.pad(x_rel, (0, pad), constant_values=self.window)
 
 
 def _pad_pings(a, pad, fill=np.nan):
@@ -203,18 +263,8 @@ def _channel_mesh(mesh, n_channels):
     return Mesh(mesh.devices[:, :1], mesh.axis_names)
 
 
-def _widest_window(x_ids, chunk_pings):
-    """Most ping bins any chunk of any file spans (the kernels' static W)."""
-    window = 1
-    for x in x_ids:
-        for lo in range(0, len(x), chunk_pings):
-            hi = min(lo + chunk_pings, len(x))
-            window = max(window, int(x[hi - 1] - x[lo]) + 1)
-    return window
-
-
 class _ScanUnavailable(Exception):
-    """Extent scan could not cover this survey; use the eager two-pass path."""
+    """Extent scan could not cover this survey; plan from the decoded files."""
 
 
 def _resolve_freq_diff(freq_diff, chans, freq_nominal=None):
@@ -360,23 +410,19 @@ def _resolve_bin_m(range_bin, range_bin_m, name="range_bin") -> float:
 
 
 class _PowerChunkStreamer:
-    """Per-file chunk loop shared by the streamed and eager paths.
+    """Per-file chunk loop of the power-mode streamer, on ``plan``.
 
     With ``ship_i16`` (EK power) converts dB power back to its int16 sample
-    indices in two alternating reusable buffers; otherwise (AZFP) ships the
-    float32 dB power, its padded pings NaN.  Pads the last chunk (padded
-    pings have valid length 0 and park past the window) and launches the
-    chunk's kernel, on each block of ``mesh`` when there is one (the
-    chunk is then a multiple of its ping shards, :func:`_mesh_layout`).
+    indices in two alternating reusable buffers of ``R_max`` samples a
+    ping; otherwise (AZFP) ships the float32 dB power, its padded pings
+    NaN.  Pads every chunk to the plan's full chunk (padded pings have
+    valid length 0 and park past the window) and launches the chunk's
+    kernel, on each block of the plan's mesh when there is one.
     """
 
-    def __init__(self, n_ch, chunk_pings, R_max, window, n_r, range_edges, acc, timer,
-                 device, ship_i16=True, mesh=None):
-        self.mesh = mesh
-        self.chunk_pings = chunk_pings
-        self.window = window
-        self.n_r = n_r
-        self.r_edges_f4 = np.asarray(range_edges, dtype="f4")
+    def __init__(self, plan, n_ch, R_max, acc, timer, device, ship_i16=True):
+        self.plan = plan
+        self.r_edges_f4 = np.asarray(plan.range_edges, dtype="f4")
         self.acc = acc
         self.timer = timer
         self.device = device
@@ -384,8 +430,8 @@ class _PowerChunkStreamer:
         self.chunk_no = 0
         if ship_i16:
             self.inv_scale = np.float32(1.0) / np.float32(INDEX2POWER)
-            self.buf_f = np.empty((n_ch, chunk_pings, R_max), dtype="f4")
-            self.bufs_i = [np.empty((n_ch, chunk_pings, R_max), dtype="<i2")
+            self.buf_f = np.empty((n_ch, plan.chunk_pings, R_max), dtype="f4")
+            self.bufs_i = [np.empty((n_ch, plan.chunk_pings, R_max), dtype="<i2")
                            for _ in range(2)]
 
     def _to_i16(self, power, sl, n):
@@ -413,10 +459,10 @@ class _PowerChunkStreamer:
         ``fd`` (a resolved frequency-differencing criterion) every chunk
         runs the masked step, whose counts depend on the data.  ``r0``
         [C, P] is the echo_range intercept (AZFP), None for EK."""
-        timer, acc, chunk_pings, window = self.timer, self.acc, self.chunk_pings, self.window
+        timer, acc, plan = self.timer, self.acc, self.plan
+        chunk_pings, window = plan.chunk_pings, plan.window
         # the device stage's own name where 4-byte float32 samples go up
         dev_stage = "device_mvbs" if self.ship_i16 else "device_mvbs_f32"
-        n_ping = power.shape[1]
         with timer.stage("valid_len"):  # a pass over the file's power, and K1's bounds
             host_counts = (
                 closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
@@ -424,11 +470,9 @@ class _PowerChunkStreamer:
             )
             # ragged pings pad with a NaN suffix, so finite-count == valid length
             valid_len = (~np.isnan(power)).sum(axis=2).astype("i4")
-        for lo in range(0, n_ping, chunk_pings):
-            hi = min(lo + chunk_pings, n_ping)
-            pad = chunk_pings - (hi - lo)
-            sl = slice(lo, hi)
-            x_base = int(x_idx_all[lo])
+        for sl, x_base, x_rel in plan.chunks(x_idx_all):
+            n = sl.stop - sl.start
+            pad = chunk_pings - n
             timer.count("staged_pings", chunk_pings)
             timer.count("padded_pings", pad)
 
@@ -438,14 +482,14 @@ class _PowerChunkStreamer:
 
             if self.ship_i16:
                 with timer.stage("to_int16"):
-                    p_chunk = self._to_i16(power, sl, hi - lo)
+                    p_chunk = self._to_i16(power, sl, n)
             else:
                 with timer.stage("pad_float32"):
                     p_chunk = np.asarray(power[:, sl], dtype="f4")
                     if pad:  # NaN power adds nothing to any bin
                         p_chunk = np.pad(p_chunk, ((0, 0), (0, pad), (0, 0)),
                                          constant_values=np.nan)
-            x_rel = np.pad(x_idx_all[sl] - x_base, (0, pad), constant_values=window)
+            x_rel = plan.park(x_rel, pad)
             vl_chunk = np.pad(valid_len[:, sl], ((0, 0), (0, pad)))
             args = (p_chunk, _pad2(dr, 1.0), _pad2(shift), _pad2(alpha), _pad2(offset),
                     vl_chunk, x_rel.astype("i4"), self.r_edges_f4)
@@ -462,7 +506,7 @@ class _PowerChunkStreamer:
         """One chunk on the mesh (``mesh=None``: one block on ``device``):
         (sums, counts), counts None where the host's closed form gives them
         (uniform files, no mask)."""
-        mesh, window, n_r, dev = self.mesh, self.window, self.n_r, self.device
+        mesh, window, n_r, dev = self.plan.mesh, self.plan.window, self.plan.n_r, self.device
         if fd is not None:
             ia, ib, op, diff = fd
             return sharded_mvbs_partials_freqdiff(mesh, window, n_r, ia, ib, op, device=dev)(
@@ -480,20 +524,24 @@ def _is_uniform(dr, shift, r0=None):
                 and (r0 is None or not np.any(r0)))
 
 
-def _finalize(sums, counts, chans, ping_edges, echo_range, timer, dev):
+def _finalize(sums, counts, chans, plan, timer, dev, range_var="echo_range", routes=None):
+    """The MVBS Dataset of the survey's sums and counts, on the plan's
+    ping-time bins and its first ``sums.shape[2]`` range bins."""
     with timer.stage("finalize"):
         with np.errstate(invalid="ignore", divide="ignore"):
             mvbs = np.where(counts > 0, _lin2log(sums / np.maximum(counts, 1)), np.nan)
         out = Dataset(
             coords={
                 "channel": np.asarray(chans, dtype=object),
-                "ping_time": ping_edges[:-1],
-                "echo_range": echo_range,
+                "ping_time": plan.x_edges[:-1],
+                range_var: plan.range_edges[: sums.shape[2]],
             }
         )
-        out["Sv"] = (("channel", "ping_time", "echo_range"), mvbs)
+        out["Sv"] = (("channel", "ping_time", range_var), mvbs)
         out.attrs["stage_timing"] = str(timer.report(log=False))
         out.attrs["device"] = device_name(dev)
+        if routes is not None:
+            out.attrs["routes"] = routes
     return out
 
 
@@ -525,13 +573,14 @@ def run_survey_mvbs_from_raw(
     The arguments are the JAX package's; ``device`` ("cuda" by default,
     "cpu" for the plain PyTorch path) is where the device work runs.
     Power mode (EK60/ES70; EK80-family files without ``waveform_mode`` /
-    ``encode_mode``, whose power channels calibrate as CW power): on local
-    EK60/ES70 files ``prefetch=True`` runs the single-pass streamer (a
-    header-only extent scan fixes the bin grids; each file decodes on a
-    background thread while the previous one streams); otherwise, or when
-    the scan cannot cover the survey, the eager two-pass path runs.  Both
+    ``encode_mode``, whose power channels calibrate as CW power): one file
+    loop streams the files on the survey's bin grid.  On local EK60/ES70
+    files ``prefetch=True`` plans that grid from a header-only extent scan
+    and decodes each file on a background thread while the previous one
+    streams; otherwise, or when the scan cannot cover the survey, every
+    file decodes first and the grid comes from the decoded inputs.  Both
     give the same bins.  AZFP/AZFP6 (``xml_path`` for AZFP; salinity and
-    pressure in ``env_params``) take the eager path: power ships as float32
+    pressure in ``env_params``) decode first: power ships as float32
     dB and each chunk runs K2's float32 instance with the echo_range
     intercept ``r0`` (AZFP echo_range is ``r0 + k dr``), as the JAX
     package's XLA step does.
@@ -545,7 +594,7 @@ def run_survey_mvbs_from_raw(
 
     ``freq_diff`` ('"chA" - "chB" > 3dB', '120kHz - 38kHz > 6dB', or a dict
     with chanA/chanB or freqA/freqB, operator, diff): masked samples join
-    no bin on any channel.  Power mode then takes the eager path and the
+    no bin on any channel.  Power mode then decodes first and takes the
     masked step (``pipeline.sv_mvbs_window_partials_freqdiff``) instead of
     K1/K2; complex chunks mask their Sv on the device before the bins; the
     fused path stacks each chunk's per-channel Sv, masks it and bins it.
@@ -558,9 +607,9 @@ def run_survey_mvbs_from_raw(
     at a time.
 
     ``workers=N`` (N > 0, two files or more) decodes the files in N spawned
-    processes, one file a task, as the JAX package does: the prefetch
-    streamer is then off and the eager path consumes the decoded inputs in
-    file order, so the bins equal ``workers=0, prefetch=False`` bit for bit.
+    processes, one file a task, as the JAX package does: the extent scan
+    is then off and the file loop consumes the decoded inputs in file
+    order, so the bins equal ``workers=0, prefetch=False`` bit for bit.
     The workers resolve parameters on the CPU and never touch the card; a
     worker that fails makes the survey raise.  The ``noise_masks`` and
     complex routes ignore ``workers``, as in the JAX package.
@@ -607,18 +656,24 @@ def run_survey_mvbs_from_raw(
         )
 
     make_cal = _power_calibrator(sonar_model, env_params, cal_params, dev)
+
+    def load(f):
+        return _load_inputs(f, sonar_model, use_swap, xml_path, make_cal)
+
+    source = None
     if prefetch and freq_diff is None and not workers and sonar_model in _EK60_MODELS:
         try:
-            return _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin,
-                                 chunk_pings, env_params, use_swap, xml_path, timer,
-                                 make_cal, dev, mesh)
+            source = _plan_from_scan(raw_files, ping_time_bin, range_bin_m, chunk_pings,
+                                     env_params, mesh, timer, load)
         except _ScanUnavailable as e:
             logger.warning(f"extent scan unavailable ({e}); using eager two-pass ingest")
-    pool = None
-    if workers and len(raw_files) > 1:
-        pool = (workers, (sonar_model, use_swap, xml_path, env_params, cal_params))
-    return _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-                      use_swap, xml_path, timer, make_cal, dev, freq_diff, pool, mesh)
+    if source is None:
+        pool = None
+        if workers and len(raw_files) > 1:
+            pool = (workers, (sonar_model, use_swap, xml_path, env_params, cal_params))
+        source = _plan_from_decoded(raw_files, ping_time_bin, range_bin_m, chunk_pings, mesh,
+                                    timer, load, pool)
+    return _stream_power(raw_files, *source, sonar_model, range_bin_m, freq_diff, timer, dev)
 
 
 def _power_calibrator(sonar_model, env_params, cal_params, dev):
@@ -717,51 +772,27 @@ def _pool_load(raw_files, workers, args):
         return list(ex.map(_pool_decode_one, [(f, *args) for f in raw_files]))
 
 
-def _run_eager(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-               use_swap, xml_path, timer, make_cal, dev, freq_diff=None, pool=None, mesh=None):
-    """Two-pass path: decode every file (in a process pool when ``pool`` is
-    ``(workers, args)``), fix the global grids, then stream (every chunk
-    through the masked step when ``freq_diff`` is set; over ``mesh`` when
-    given)."""
+def _last_range(power, dr, r0):
+    """The echo range of a file's farthest sample, the largest r0 + (R - 1) * dr."""
+    return ((0.0 if r0 is None else float(np.nanmax(r0)))
+            + float(np.nanmax(dr)) * (power.shape[2] - 1))
+
+
+def _plan_from_decoded(raw_files, ping_time_bin, range_bin_m, chunk_pings, mesh, timer, load,
+                       pool=None):
+    """Decode every file (in a process pool when ``pool`` is ``(workers,
+    args)``) and plan the survey's exact grid from the decoded inputs.
+    Returns (plan, most samples a ping, the decoded inputs in file order)."""
     with timer.stage("ingest"):
         if pool is not None:
             loaded = _pool_load(raw_files, *pool)
         else:
-            loaded = [_load_inputs(f, sonar_model, use_swap, xml_path, make_cal)
-                      for f in raw_files]
-    chans = loaded[0][7]
-    if any(item[7] != chans for item in loaded[1:]):
-        raise ValueError("all raw files must share the same channels")
-
-    t_min = min(item[6].min() for item in loaded)
-    t_max = max(item[6].max() for item in loaded)
-    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
-                                     ping_time_bin)
-    # the last SAMPLE is at r0 + (R-1)*dr
-    r_max = max(
-        (0.0 if item[5] is None else float(np.nanmax(item[5])))
-        + float(np.nanmax(item[1])) * (item[0].shape[2] - 1)
-        for item in loaded
-    )
-    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
-    n_x, n_r = len(ping_edges) - 1, len(range_edges) - 1
-    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
-
-    ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
-    x_ids = [_global_ping_bins(item[6].astype("i8"), ping_edges_i8, n_x) for item in loaded]
-    window = _widest_window(x_ids, chunk_pings)
-
-    fd = _resolve_freq_diff(freq_diff, chans, loaded[0][8])
-    acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
-    R_max = max(item[0].shape[2] for item in loaded)
-    streamer = _PowerChunkStreamer(len(chans), chunk_pings, R_max, window, n_r,
-                                   range_edges, acc, timer, dev,
-                                   ship_i16=sonar_model not in _AZFP_MODELS, mesh=mesh)
-    for (power, dr, shift, alpha, offset, r0, *_), x_idx_all in zip(loaded, x_ids):
-        streamer.stream_file(power, dr, shift, alpha, offset, x_idx_all,
-                             _is_uniform(dr, shift, r0), fd, r0=r0)
-    sums, counts = acc.finish()
-    return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
+            loaded = [load(f) for f in raw_files]
+    r_max = max(_last_range(item[0], item[1], item[5]) for item in loaded)
+    plan = _SurveyPlan.over_ping_time([item[6] for item in loaded], ping_time_bin, r_max,
+                                      range_bin_m, chunk_pings, len(loaded[0][7]), mesh)
+    # a generator, which the file loop closes as it does the decode-ahead one
+    return plan, max(item[0].shape[2] for item in loaded), (item for item in loaded)
 
 
 def _warm(f):
@@ -776,18 +807,17 @@ def _warm(f):
         pass
 
 
-def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_pings,
-                  env_params, use_swap, xml_path, timer, make_cal, dev, mesh=None):
-    """Single-pass streamer with a decode-ahead thread.
+def _plan_from_scan(raw_files, ping_time_bin, range_bin_m, chunk_pings, env_params, mesh,
+                    timer, load):
+    """Plan the survey from a header-only extent scan, and decode each file
+    on a background thread while the one before streams.
 
-    Pass 0 is a header-only extent scan: the unique RAW0 timestamps are the
-    decoded ping_time union, so the global ping bins are exact, and the
-    recorded sample counts / intervals / sound speeds bound the range grid.
-    Kernels run on the bound; the exact survey grid (a prefix of it) is
-    trimmed at finalize.  Raises _ScanUnavailable when any file is remote,
-    corrupt or has no RAW0 data.  The "ingest" stage is timed on the worker
-    thread and overlaps the other stages; "wait_decode" is the main
-    thread's wait for it.
+    The unique RAW0 timestamps are the decoded ping_time union, so the
+    global ping bins are exact, and the recorded sample counts / intervals
+    / sound speeds bound the range grid (the file loop trims it to the
+    decoded ranges).  Raises _ScanUnavailable when any file is remote,
+    corrupt or has no RAW0 data.  Returns what :func:`_plan_from_decoded`
+    returns.
     """
     if any(is_remote_path(f) for f in raw_files):
         raise _ScanUnavailable("remote raw files")
@@ -799,12 +829,6 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
     if any(len(s.times) == 0 for s in scans):
         raise _ScanUnavailable("file with no RAW0 datagrams")
 
-    t_min = min(s.times[0] for s in scans)
-    t_max = max(s.times[-1] for s in scans)
-    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
-                                     ping_time_bin)
-    n_x = len(ping_edges) - 1
-
     # range-grid bound covering any resolved sound speed (user/env/measured)
     c_bound = max(1700.0, *(s.max_sound_velocity for s in scans))
     if env_params and isinstance(env_params.get("sound_speed"), (int, float)):
@@ -812,63 +836,77 @@ def _run_streamed(raw_files, sonar_model, range_bin_m, ping_time_bin, chunk_ping
     r_bound = (
         max(s.max_count for s in scans) * max(s.max_interval for s in scans) * c_bound / 2.0
     )
-    range_edges = np.arange(0, r_bound + range_bin_m, range_bin_m)
-    n_r = len(range_edges) - 1
-    chunk_pings = _mesh_layout(mesh, chunk_pings, scans[0].n_channels)
+    plan = _SurveyPlan.over_ping_time([s.times for s in scans], ping_time_bin, r_bound,
+                                      range_bin_m, chunk_pings, scans[0].n_channels, mesh)
+    return plan, max(s.max_count for s in scans), _decode_ahead(raw_files, load, timer)
 
-    ping_edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
-    x_ids = [_global_ping_bins(s.times.astype("i8"), ping_edges_i8, n_x) for s in scans]
-    window = _widest_window(x_ids, chunk_pings)
 
-    def load(f):
+def _decode_ahead(raw_files, load, timer):
+    """``load(f)`` of each file in order, decoded on a background thread one
+    file ahead of the caller, with the file after it read ahead.  The
+    "ingest" stage is timed on the worker thread and overlaps the other
+    stages; "wait_decode" is the caller's wait for it, left before each
+    file is handed over."""
+    def ingest(f):
         with timer.stage("ingest"):
-            return _load_inputs(f, sonar_model, use_swap, xml_path, make_cal)
+            return load(f)
 
-    acc = streamer = chans0 = None
-    r_max_true = 0.0
     with ThreadPoolExecutor(max_workers=1) as ex, ThreadPoolExecutor(max_workers=1) as warm_ex:
-        fut = ex.submit(load, raw_files[0])
+        fut = ex.submit(ingest, raw_files[0])
         if len(raw_files) > 1:
             warm_ex.submit(_warm, raw_files[1])
         for i in range(len(raw_files)):
             with timer.stage("wait_decode"):
-                power, dr, shift, alpha, offset, _, pt, chans, _ = fut.result()
+                item = fut.result()
             if i + 1 < len(raw_files):
-                fut = ex.submit(load, raw_files[i + 1])
+                fut = ex.submit(ingest, raw_files[i + 1])
             if i + 2 < len(raw_files):
                 warm_ex.submit(_warm, raw_files[i + 2])
-            if not np.array_equal(pt, scans[i].times):
+            yield item
+
+
+def _stream_power(raw_files, plan, max_samples, decoded, sonar_model, range_bin_m, freq_diff,
+                  timer, dev):
+    """The power-mode file loop: stream each decoded file's chunks on
+    ``plan`` (every chunk through the masked step when ``freq_diff`` is set;
+    over the plan's mesh when it has one).
+
+    ``decoded`` yields :func:`_load_inputs`'s tuple of each file in order.
+    Every file must have the first file's channels, the plan's ping times
+    and no sample past the plan's range bound: a plan from the decoded
+    inputs holds them by construction, a scanned one is checked.  The range
+    bins end at the survey's last sample (all of a decoded plan's grid, a
+    prefix of a scanned one).
+    """
+    acc = streamer = chans0 = fd = None
+    r_max = 0.0
+    with contextlib.closing(decoded):
+        for f, x_ids, times, (power, dr, shift, alpha, offset, r0, pt, chans, freq) in zip(
+                raw_files, plan.x_ids, plan.times, decoded):
+            if not np.array_equal(pt, times):
                 raise RuntimeError(
-                    f"{raw_files[i]}: decoded ping_time disagrees with the "
-                    "extent scan; rerun with prefetch=False"
+                    f"{f}: decoded ping_time disagrees with the extent scan; "
+                    "rerun with prefetch=False"
                 )
             if chans0 is None:
                 chans0 = chans
-                acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
-                streamer = _PowerChunkStreamer(
-                    len(chans), chunk_pings, max(s.max_count for s in scans),
-                    window, n_r, range_edges, acc, timer, dev, mesh=mesh,
-                )
+                fd = _resolve_freq_diff(freq_diff, chans, freq)
+                acc = plan.accumulator(len(chans), timer)
+                streamer = _PowerChunkStreamer(plan, len(chans), max_samples, acc, timer, dev,
+                                               ship_i16=sonar_model not in _AZFP_MODELS)
             elif chans != chans0:
                 raise ValueError("all raw files must share the same channels")
-            # the last SAMPLE is at (R-1)*dr
-            r_max_true = max(r_max_true, float(np.nanmax(dr)) * (power.shape[2] - 1))
-            if r_max_true > range_edges[-1]:
+            r_max = max(r_max, _last_range(power, dr, r0))
+            if r_max > plan.r_bound:
                 raise RuntimeError(
-                    f"{raw_files[i]}: resolved echo range {r_max_true:.1f} m "
-                    f"exceeds the scanned bound {range_edges[-1]:.1f} m; "
-                    "rerun with prefetch=False"
+                    f"{f}: resolved echo range {r_max:.1f} m exceeds the scanned bound "
+                    f"{plan.r_bound:.1f} m; rerun with prefetch=False"
                 )
-            streamer.stream_file(power, dr, shift, alpha, offset, x_ids[i],
-                                 _is_uniform(dr, shift))
+            streamer.stream_file(power, dr, shift, alpha, offset, x_ids,
+                                 _is_uniform(dr, shift, r0), fd, r0=r0)
     sums, counts = acc.finish()
-
-    # exact survey grid = prefix of the scanned bound grid
-    n_r_true = min(
-        n_r, max(1, len(np.arange(0, r_max_true + range_bin_m, range_bin_m)) - 1)
-    )
-    return _finalize(sums[:, :, :n_r_true], counts[:, :, :n_r_true], chans0, ping_edges,
-                     range_edges[: n_r_true + 1][:-1], timer, dev)
+    n_r = min(plan.n_r, max(1, len(np.arange(0, r_max + range_bin_m, range_bin_m)) - 1))
+    return _finalize(sums[:, :, :n_r], counts[:, :, :n_r], chans0, plan, timer, dev)
 
 
 # ------------------------------------------- EK80 complex channels -> MVBS
@@ -896,9 +934,11 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     host float64); membership of the chunk's echo_range resolves on the
     host in float64 and ships encoded, and the bins sum on ``dev``.
     Multi-``filter_time`` files stream per (channel, filter epoch) work unit
-    (``calibrate.api.epoch_slice_dicts``): resolving epochs per chunk would
-    apply the wrong filters to a chunk without its epoch's timestamp.
-    ``device_fused`` hands over to :func:`_run_complex_fused`.
+    (``calibrate.api.epoch_slice_dicts``): each chunk calibrates through
+    CalibrateEK80's slice_dict (one channel, one filter set, the chunk's
+    ping range), so the filter epoch is the one governing those pings
+    wherever the chunks fall.  ``device_fused`` hands over to
+    :func:`_run_complex_fused`.
 
     With ``freq_diff`` each chunk's Sv is masked across channels on the
     device before the bins; a multi-``filter_time`` file then calibrates
@@ -913,6 +953,7 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     package.
     """
     from ..calibrate.api import compute_Sv, epoch_slice_dicts
+    from ..calibrate.ek80 import CalibrateEK80
     from ..echodata.simrad import retrieve_correct_beam_group
 
     sv_kw = dict(env_params=env_params, cal_params=cal_params, waveform_mode=waveform_mode,
@@ -930,12 +971,6 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     for ed, bp in zip(eds[1:], beam_paths[1:]):
         if list(ed[bp].coords["channel"].values) != chans:
             raise ValueError("all raw files must share the same channels")
-    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
-    t_min = min(pt.min() for pt in ping_times)
-    t_max = max(pt.max() for pt in ping_times)
-    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
-                                     ping_time_bin)
-    n_x = len(ping_edges) - 1
     fd = None
     if freq_diff is not None:
         fd = _resolve_freq_diff(freq_diff, chans,
@@ -946,8 +981,8 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
                        "chunked compute_Sv path")
     elif device_fused:
         if fd is None or not any(multi_epoch):
-            return _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m,
-                                      chunk_pings, sv_kw, timer, dev, fd=fd)
+            return _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin,
+                                      range_bin_m, chunk_pings, sv_kw, timer, dev, fd=fd)
         logger.warning("device_fused freq_diff with multi-filter_time files uses the "
                        "chunked compute_Sv path")
 
@@ -961,28 +996,24 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
             si = np.asarray(ed[bp]["sample_interval"].values, dtype="f8")
             ratio = np.nanmax(np.nanmax(si, axis=-1) / np.maximum(si[..., 0], 1e-30))
             r_max = max(r_max, float(np.nanmax(er1[:, 0, -1]) * max(ratio, 1.0)))
-    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
-    n_r = len(range_edges) - 1
-    edges_i8 = ping_edges.astype("i8")
 
-    x_ids, epoch_plans = [], []
+    # work units: (file, its epoch slice dict or None, the unit's ping indices)
+    units, unit_times = [], []
     for ed, bp, pt, multi in zip(eds, beam_paths, ping_times, multi_epoch):
         if multi and fd is None:
-            plan = []
             for sd in epoch_slice_dicts(ed[bp], ed["Vendor_specific"]):
                 keep = pt >= np.datetime64(sd["beam_group_start_time"], "ns")
                 if sd["beam_group_end_time"] is not None:
                     keep &= pt <= np.datetime64(sd["beam_group_end_time"], "ns")
                 idxs = np.nonzero(keep)[0]
                 if len(idxs):
-                    plan.append((sd, idxs, _global_ping_bins(pt[idxs].astype("i8"), edges_i8,
-                                                             n_x)))
-            epoch_plans.append(plan)
-            x_ids.extend(x for _, _, x in plan)
+                    units.append((ed, bp, pt, multi, sd, idxs))
+                    unit_times.append(pt[idxs])
         else:
-            epoch_plans.append(_global_ping_bins(pt.astype("i8"), edges_i8, n_x))
-            x_ids.append(epoch_plans[-1])
-    window = _widest_window(x_ids, chunk_pings)
+            units.append((ed, bp, pt, multi, None, None))
+            unit_times.append(pt)
+    plan = _SurveyPlan.over_ping_time(ping_times, ping_time_bin, r_max, range_bin_m, chunk_pings,
+                                      len(chans), mesh, unit_times)
     # complex-channel echo_range is affine in the sample index: ping-invariant
     # wherever the file's sample interval is
     uniform = all(
@@ -990,9 +1021,9 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
         for si in (np.asarray(ed[bp]["sample_interval"].values, dtype="f8")
                    for ed, bp in zip(eds, beam_paths))
     )
-    acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
+    acc = plan.accumulator(len(chans), timer)
     ch_pos = {str(c): i for i, c in enumerate(chans)}
-    enc_edges = binning._to_dev(np.arange(n_r + 1), dev)
+    enc_edges = binning._to_dev(np.arange(plan.n_r + 1), dev)
     masked = _fd_mask(fd) if fd is not None else (lambda sv: sv)
 
     def bin_chunk(sv, er, x_rel):
@@ -1002,71 +1033,49 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
         window)."""
         sv = np.asarray(sv, dtype="f4")
         er = np.asarray(er, dtype="f8")
-        er = binning.exact_bin_encode_np(np.broadcast_to(er, sv.shape), range_edges)[0]
-        unit_mesh = _channel_mesh(mesh, sv.shape[0])
-        pad = _ping_pad(sv.shape[1], unit_mesh)
-        s, c, _ = sharded_binned_partials(unit_mesh, window, uniform_er=uniform, device=dev)(
-            masked(binning._to_dev(_pad_pings(sv, pad), dev)),
-            binning._to_dev(_pad_pings(er, pad), dev), enc_edges,
-            binning._to_dev(np.pad(x_rel, (0, pad), constant_values=window), dev, "i4"))
+        er = binning.exact_bin_encode_np(np.broadcast_to(er, sv.shape), plan.range_edges)[0]
+        pad = plan.mesh_pad(sv.shape[1])
+        step = sharded_binned_partials(_channel_mesh(mesh, sv.shape[0]), plan.window,
+                                       uniform_er=uniform, device=dev)
+        s, c, _ = step(masked(binning._to_dev(_pad_pings(sv, pad), dev)),
+                       binning._to_dev(_pad_pings(er, pad), dev), enc_edges,
+                       binning._to_dev(plan.park(x_rel, pad), dev, "i4"))
         return s, c
 
     def chunk_sv(ds):
         return ds["Sv"].values, ds["echo_range"].values
 
-    for ed, bp, plan, multi in zip(eds, beam_paths, epoch_plans, multi_epoch):
-        if isinstance(plan, list):
-            _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos,
-                                   lambda ds, x_rel: bin_chunk(*chunk_sv(ds), x_rel), timer)
-            continue
-        if multi:  # freq_diff: the whole file's Sv, every channel on one grid
+    for (ed, bp, pt, multi, sd, idxs), x_ids in zip(units, plan.x_ids):
+        if multi and sd is None:  # freq_diff: the whole file's Sv, every channel on one grid
             with timer.stage("chunk_calibrate"):
                 sv_full, er_full = chunk_sv(compute_Sv(ed, **sv_kw))
                 er_full = np.broadcast_to(er_full, sv_full.shape)
-        for lo in range(0, len(plan), chunk_pings):
-            hi = min(lo + chunk_pings, len(plan))
-            x_base = int(plan[lo])
+        for sl, x_base, x_rel in plan.chunks(x_ids):
             with timer.stage("chunk_calibrate"):
-                if multi:
-                    sv, er = sv_full[:, lo:hi], er_full[:, lo:hi]
+                if sd is not None:
+                    sd_chunk = dict(sd, beam_group_start_time=pt[idxs[sl.start]],
+                                    beam_group_end_time=pt[idxs[sl.stop - 1]])
+                    sv, er = chunk_sv(CalibrateEK80(
+                        ed, env_params, cal_params, waveform_mode=waveform_mode,
+                        encode_mode=encode_mode, precision="float32", device=dev,
+                        slice_dict=sd_chunk,
+                    ).compute_Sv())
+                elif multi:
+                    sv, er = sv_full[:, sl], er_full[:, sl]
                 else:
-                    sv, er = chunk_sv(compute_Sv(_slice_echodata_pings(ed, bp, slice(lo, hi)),
-                                                 **sv_kw))
+                    sv, er = chunk_sv(compute_Sv(_slice_echodata_pings(ed, bp, sl), **sv_kw))
             with timer.stage("device_binning"):
-                s, c = bin_chunk(sv, er, plan[lo:hi] - x_base)
-            acc.push(s, c, x_base)
+                s, c = bin_chunk(sv, er, x_rel)
+            if sd is None:
+                acc.push(s, c, x_base)
+            else:  # one channel's partials
+                acc.push(s[0], c[0], x_base, ch=ch_pos[sd["channel"]])
     sums, counts = acc.finish()
-    return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
+    return _finalize(sums, counts, chans, plan, timer, dev)
 
 
-def _stream_complex_epochs(ed, bp, plan, sv_kw, chunk_pings, acc, ch_pos, bin_chunk, timer):
-    """Chunk-stream one multi-``filter_time`` file per (channel, epoch)
-    work unit: each chunk calibrates through CalibrateEK80's slice_dict (one
-    channel, one filter set, the chunk's ping range), so the filter epoch is
-    the one governing those pings wherever the chunks fall."""
-    from ..calibrate.ek80 import CalibrateEK80
-
-    pt_all = np.asarray(ed[bp].coords["ping_time"].values, dtype="datetime64[ns]")
-    for sd, idxs, x_idx_all in plan:
-        ci = ch_pos[sd["channel"]]
-        for lo in range(0, len(idxs), chunk_pings):
-            hi = min(lo + chunk_pings, len(idxs))
-            x_base = int(x_idx_all[lo])
-            sd_chunk = dict(sd, beam_group_start_time=pt_all[idxs[lo]],
-                            beam_group_end_time=pt_all[idxs[hi - 1]])
-            with timer.stage("chunk_calibrate"):
-                ds = CalibrateEK80(
-                    ed, sv_kw["env_params"], sv_kw["cal_params"],
-                    waveform_mode=sv_kw["waveform_mode"], encode_mode=sv_kw["encode_mode"],
-                    precision=sv_kw["precision"], device=sv_kw["device"], slice_dict=sd_chunk,
-                ).compute_Sv()
-            with timer.stage("device_binning"):
-                s, c = bin_chunk(ds, x_idx_all[lo:hi] - x_base)
-            acc.push(s[0], c[0], x_base, ch=ci)
-
-
-def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pings, sv_kw,
-                       timer, dev, fd=None):
+def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_bin_m,
+                       chunk_pings, sv_kw, timer, dev, fd=None):
     """Fused complex-channel streaming: one device pass per (channel, chunk)
     does pulse compression, received power, Sv and the window bins
     (``ops/bb_pipeline.bb_chunk_window_partials``), float32 end to end.
@@ -1086,7 +1095,6 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
 
     waveform_mode = sv_kw["waveform_mode"]
     do_pc = waveform_mode in ("BB", "FM")
-    n_x = len(ping_edges) - 1
     cals, scals, r_max = [], [], 0.0
     with timer.stage("param_resolution"):
         for ed, bp in zip(eds, beam_paths):
@@ -1105,17 +1113,15 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
                 # the last sample sits at (R - 1) * dr
                 r_max = max(r_max, float(np.nanmax(scal["dr"])) * (cal.beam.sizes["range_sample"]
                                                                    - 1))
-    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
-    r_edges_f4 = range_edges.astype("f4")
-    edges_i8 = ping_edges.astype("i8")
-    x_ids = [_global_ping_bins(np.asarray(cal.beam.coords["ping_time"].values,
-                                          dtype="datetime64[ns]").astype("i8"), edges_i8, n_x)
-             for cal in cals]
-    window = _widest_window(x_ids, chunk_pings)
-    acc = _PartialAccumulator(len(chans), n_x, len(range_edges) - 1, window, timer)
+    plan = _SurveyPlan.over_ping_time(
+        ping_times, ping_time_bin, r_max, range_bin_m, chunk_pings, len(chans),
+        unit_times=[np.asarray(cal.beam.coords["ping_time"].values, dtype="datetime64[ns]")
+                    for cal in cals])
+    r_edges_f4 = plan.range_edges.astype("f4")
+    acc = plan.accumulator(len(chans), timer)
     ch_pos = {str(c): i for i, c in enumerate(chans)}
 
-    for cal, scal, x_idx_all in zip(cals, scals, x_ids):
+    for cal, scal, x_ids in zip(cals, scals, plan.x_ids):
         with timer.stage("param_resolution"):
             beam = cal.beam
             n_ch, n_ping = beam.sizes["channel"], beam.sizes["ping_time"]
@@ -1150,9 +1156,7 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
         if fd is not None:
             masked = _fd_mask(fd)
             r_edges_t = binning._to_dev(r_edges_f4, dev)
-            for lo in range(0, n_ping, chunk_pings):
-                sl = slice(lo, min(lo + chunk_pings, n_ping))
-                x_base = int(x_idx_all[lo])
+            for sl, x_base, x_rel in plan.chunks(x_ids):
                 with timer.stage("device_fused"):
                     by_pos = {}
                     for ci, cid in enumerate(ch_ids):
@@ -1164,25 +1168,23 @@ def _run_complex_fused(eds, beam_paths, chans, ping_edges, range_bin_m, chunk_pi
                     sv = masked(torch.stack([by_pos[i][0] for i in range(len(chans))]))
                     er = torch.stack([by_pos[i][1] for i in range(len(chans))])
                     s, c, _ = binning.binned_window_partials(
-                        sv, er, r_edges_t, binning._to_dev(x_idx_all[sl] - x_base, dev, "i4"),
-                        window, uniform_er=uniform_er)
+                        sv, er, r_edges_t, binning._to_dev(x_rel, dev, "i4"), plan.window,
+                        uniform_er=uniform_er)
                 acc.push(s, c, x_base)
             continue
         for ci, cid in enumerate(ch_ids):
             hr, hi, inv_norm = reps[ci]
-            for lo in range(0, n_ping, chunk_pings):
-                sl = slice(lo, min(lo + chunk_pings, n_ping))
-                x_base = int(x_idx_all[lo])
+            for sl, x_base, x_rel in plan.chunks(x_ids):
                 with timer.stage("device_fused"):
                     s, c = bb_chunk_window_partials(
                         bs_r_all[ci, sl], bs_i_all[ci, sl], hr, hi, inv_norm, z_coef[ci, sl],
                         dr[ci, sl], shift[ci, sl], alpha[ci, sl], offset[ci, sl], k0[ci, sl],
-                        valid_len[ci, sl], x_idx_all[sl] - x_base, r_edges_f4, window, do_pc,
+                        valid_len[ci, sl], x_rel, r_edges_f4, plan.window, do_pc,
                         uniform_er=uniform_er, device=dev,
                     )
                 acc.push(s, c, x_base, ch=ch_pos[cid])
     sums, counts = acc.finish()
-    return _finalize(sums, counts, chans, ping_edges, range_edges[:-1], timer, dev)
+    return _finalize(sums, counts, chans, plan, timer, dev)
 
 
 # ------------------------------------------------------- Sv stores -> grids
@@ -1201,17 +1203,6 @@ def _sv_providers(sv_sources, reopen):
     providers = [src if callable(src) else (lambda s=src: open_source(s, "dataset"))
                  for src in sv_sources]
     return providers, reopen
-
-
-def _uniform_grid_row(arr):
-    """[C, P, R] range operand -> ([C, R] row, ok): ok when every ping
-    equals the row, NaN holes included (the grid route); a file whose grid
-    or holes vary by ping keeps the per-ping route."""
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", category=RuntimeWarning)
-        row = np.nanmax(arr, axis=1)  # [C, R]
-    same = (arr == row[:, None]) | (np.isnan(arr) & np.isnan(row)[:, None])
-    return row, bool(same.all())
 
 
 def _check_channels(chans, ds):
@@ -1296,25 +1287,17 @@ def run_survey_mvbs(
             if not reopen:
                 datasets[i] = ds
 
-    t_min = min(pt.min() for pt in ping_times)
-    t_max = max(pt.max() for pt in ping_times)
-    ping_edges = ping_time_bin_edges(np.array([t_min, t_max], dtype="datetime64[ns]"),
-                                     ping_time_bin)
-    range_edges = np.arange(0, r_max + range_bin_m, range_bin_m)
-    n_x, n_r = len(ping_edges) - 1, len(range_edges) - 1
-    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
-    edges_i8 = ping_edges.astype("datetime64[ns]").astype("i8")
-    x_ids = [_global_ping_bins(pt.astype("i8"), edges_i8, n_x) for pt in ping_times]
-    window = _widest_window(x_ids, chunk_pings)
-    grid_step = sharded_binned_partials_grid(mesh, window, device=dev)
-    step = sharded_binned_partials(mesh, window, device=dev)
+    plan = _SurveyPlan.over_ping_time(ping_times, ping_time_bin, r_max, range_bin_m, chunk_pings,
+                                      len(chans), mesh)
+    grid_step = sharded_binned_partials_grid(mesh, plan.window, device=dev)
+    step = sharded_binned_partials(mesh, plan.window, device=dev)
 
     fd = _resolve_freq_diff(freq_diff, chans, freq_nom)
     masked = _fd_mask(fd) if fd is not None else (lambda sv: sv)
-    acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer)
-    enc_edges = binning._to_dev(np.arange(n_r + 1), dev)
+    acc = plan.accumulator(len(chans), timer)
+    enc_edges = binning._to_dev(np.arange(plan.n_r + 1), dev)
     routes = []
-    for i, x_idx_all in enumerate(x_ids):
+    for i, x_ids in enumerate(plan.x_ids):
         ds, datasets[i] = datasets[i], None
         if ds is None:  # reopen: one file in host memory at a time
             with timer.stage("reopen"):
@@ -1326,21 +1309,18 @@ def run_survey_mvbs(
             er_all = np.asarray(ds[range_var].values, dtype="f8")
             if er_all.shape != sv_all.shape:
                 er_all = np.broadcast_to(er_all, sv_all.shape)
-            row, use_grid = _uniform_grid_row(er_all)
+            row, use_grid = binning.ping_invariant_row(er_all)
             if use_grid:
-                row = binning._to_dev(binning.exact_bin_encode_np(row, range_edges)[0], dev)
+                row = binning._to_dev(binning.exact_bin_encode_np(row, plan.range_edges)[0], dev)
         routes.append("grid" if use_grid else "per_ping")
-        for lo in range(0, sv_all.shape[1], chunk_pings):
-            hi = min(lo + chunk_pings, sv_all.shape[1])
-            x_base = int(x_idx_all[lo])
-            pad = _ping_pad(hi - lo, mesh)  # padded pings: NaN, parked past the window
+        for sl, x_base, x_rel in plan.chunks(x_ids):
+            pad = plan.mesh_pad(sl.stop - sl.start)  # padded pings: NaN, parked past the window
             if not use_grid:
                 with timer.stage("encode"):
-                    er_enc = binning.exact_bin_encode_np(er_all[:, lo:hi], range_edges)[0]
+                    er_enc = binning.exact_bin_encode_np(er_all[:, sl], plan.range_edges)[0]
             with timer.stage("device_binning"):
-                sv = masked(binning._to_dev(_pad_pings(sv_all[:, lo:hi], pad), dev))
-                x_rel = binning._to_dev(np.pad(x_idx_all[lo:hi] - x_base, (0, pad),
-                                               constant_values=window), dev, "i4")
+                sv = masked(binning._to_dev(_pad_pings(sv_all[:, sl], pad), dev))
+                x_rel = binning._to_dev(plan.park(x_rel, pad), dev, "i4")
                 if use_grid:
                     s, c, _ = grid_step(sv, row, enc_edges, x_rel)
                 else:
@@ -1349,22 +1329,7 @@ def run_survey_mvbs(
             acc.push(s, c, x_base)
         del ds, sv_all, er_all
     sums, counts = acc.finish()
-
-    with timer.stage("finalize"):
-        with np.errstate(invalid="ignore", divide="ignore"):
-            mvbs = np.where(counts > 0, _lin2log(sums / np.maximum(counts, 1)), np.nan)
-        out = Dataset(
-            coords={
-                "channel": np.asarray(chans, dtype=object),
-                "ping_time": ping_edges[:-1],
-                range_var: range_edges[:-1],
-            }
-        )
-        out["Sv"] = (("channel", "ping_time", range_var), mvbs)
-        out.attrs["stage_timing"] = str(timer.report(log=False))
-        out.attrs["device"] = device_name(dev)
-        out.attrs["routes"] = routes
-    return out
+    return _finalize(sums, counts, chans, plan, timer, dev, range_var, routes)
 
 
 def run_survey_nasc(
@@ -1451,14 +1416,13 @@ def run_survey_nasc(
 
     dist_max = max(float(np.nanmax(d)) for d in dists)
     dist_edges = np.arange(0, dist_max + dist_bin_nmi, dist_bin_nmi)
-    depth_edges = np.arange(0, depth_max + range_bin_m, range_bin_m)
-    n_x, n_r = len(dist_edges) - 1, len(depth_edges) - 1
-    chunk_pings = _mesh_layout(mesh, chunk_pings, len(chans))
+    n_x = len(dist_edges) - 1
     side = "right" if closed == "left" else "left"
     # distance-bin ids per file (cumulative distance is non-decreasing)
     x_ids = [np.clip(np.searchsorted(dist_edges, d, side=side) - 1, 0, n_x - 1).astype("i4")
              for d in dists]
-    window = _widest_window(x_ids, chunk_pings)
+    plan = _SurveyPlan(x_ids, dist_edges, depth_max, range_bin_m, chunk_pings, len(chans), mesh)
+    window, depth_edges = plan.window, plan.range_edges
     # depth membership is encoded (idx + 0.5 against integer edges): the
     # per-ping route needs no ``closed``
     step_sv = sharded_binned_partials(mesh, window, skipna=bool(skipna), device=dev)
@@ -1467,16 +1431,16 @@ def run_survey_nasc(
                                            device=dev)
     grid_h = sharded_binned_row_sum(mesh, window, closed=closed, device=dev)
 
-    acc = _PartialAccumulator(len(chans), n_x, n_r, window, timer, n_out=4)
+    acc = plan.accumulator(len(chans), timer, n_out=4)
     denom = np.zeros(n_x, dtype="f8")
     pt_sum = np.zeros(n_x, dtype="f8")
     pos_sum = np.zeros((2, n_x), dtype="f8")
     pos_cnt = np.zeros((2, n_x), dtype="f8")
     # membership (depth vs depth_edges) resolves on the host in f64 and ships
     # encoded; ddep stays physical depth differences (the height integrand)
-    enc_edges = binning._to_dev(np.arange(n_r + 1), dev)
+    enc_edges = binning._to_dev(np.arange(plan.n_r + 1), dev)
     routes = []
-    for i, x_idx_all in enumerate(x_ids):
+    for i, x_ids in enumerate(plan.x_ids):
         ds, datasets[i] = datasets[i], None
         if ds is None:
             with timer.stage("reopen"):
@@ -1489,7 +1453,7 @@ def run_survey_nasc(
             depth_b = np.broadcast_to(
                 _conform_range(depth, ds, "depth", sv_all.shape), sv_all.shape)
             sv_all, depth_b = _orient_range_axis(sv_all, depth_b)
-            row, use_grid = _uniform_grid_row(depth_b)
+            row, use_grid = binning.ping_invariant_row(depth_b)
             if use_grid:
                 ddep_row = binning._to_dev(np.diff(row, axis=1), dev)
                 lower_row = binning._to_dev(
@@ -1500,20 +1464,17 @@ def run_survey_nasc(
                       .astype("i8") - t0_ns).astype("f8")
             pos = [np.asarray(ds[v].values, dtype="f8") for v in ("latitude", "longitude")]
         routes.append("grid" if use_grid else "per_ping")
-        for lo in range(0, sv_all.shape[1], chunk_pings):
-            hi = min(lo + chunk_pings, sv_all.shape[1])
-            x_base = int(x_idx_all[lo])
-            pad = _ping_pad(hi - lo, mesh)  # padded pings: NaN, parked past the window
+        for sl, x_base, x_rel in plan.chunks(x_ids):
+            pad = plan.mesh_pad(sl.stop - sl.start)  # padded pings: NaN, parked past the window
             if not use_grid:
                 with timer.stage("encode"):
-                    dep_phys = depth_b[:, lo:hi]
+                    dep_phys = depth_b[:, sl]
                     ddep = _pad_pings(np.diff(dep_phys, axis=2), pad)
                     dep_enc = _pad_pings(
                         binning.exact_bin_encode_np(dep_phys, depth_edges, closed)[0], pad)
             with timer.stage("device_binning"):
-                sv = binning._to_dev(_pad_pings(sv_all[:, lo:hi], pad), dev)
-                x_rel = binning._to_dev(np.pad(x_idx_all[lo:hi] - x_base, (0, pad),
-                                               constant_values=window), dev, "i4")
+                sv = binning._to_dev(_pad_pings(sv_all[:, sl], pad), dev)
+                x_rel = binning._to_dev(plan.park(x_rel, pad), dev, "i4")
                 if use_grid:
                     s, c, nc = grid_sv(sv, row, enc_edges, x_rel)
                     h = grid_h(ddep_row, lower_row, enc_edges, x_rel)
@@ -1523,12 +1484,12 @@ def run_survey_nasc(
                     h = step_h(binning._to_dev(ddep, dev), dep_t[:, :, :-1], enc_edges, x_rel)
             acc.push(s, c, nc, h, x_base)
             with timer.stage("host_sums"):
-                ids = x_idx_all[lo:hi]
+                ids = x_ids[sl]
                 denom += np.bincount(ids, minlength=n_x)
-                pt_sum += np.bincount(ids, weights=pt_rel[lo:hi], minlength=n_x)
+                pt_sum += np.bincount(ids, weights=pt_rel[sl], minlength=n_x)
                 for k, v in enumerate(pos):
-                    ok = np.isfinite(v[lo:hi])
-                    pos_sum[k] += np.bincount(ids[ok], weights=v[lo:hi][ok], minlength=n_x)
+                    ok = np.isfinite(v[sl])
+                    pos_sum[k] += np.bincount(ids[ok], weights=v[sl][ok], minlength=n_x)
                     pos_cnt[k] += np.bincount(ids[ok], minlength=n_x)
         del ds, sv_all, depth, depth_b
     sums, counts, nan_counts, h_num = acc.finish()

@@ -95,6 +95,42 @@ def test_jitter_file_takes_the_per_ping_path(raw_files, monkeypatch):
     assert seen == ["K1", "K1", "K1", "K2", "K2"]
 
 
+@pytest.mark.parametrize("pad", ["full_chunk", "mesh"])
+def test_padded_pings_park_past_the_window(raw_files, monkeypatch, pad):
+    """Padded pings carry x bin ``window``, past every bin of their chunk:
+    the power streamer's pad to a full chunk (K1/K2's x_rel), and the pad
+    that splits a Sv chunk over a mesh's ping shards.  Their data is NaN or
+    of valid length 0, so the bins alone cannot show where they park."""
+    seen = []
+    name, x_pos = (("sharded_mvbs_partials_closed", 6) if pad == "full_chunk"
+                   else ("sharded_binned_partials", 3))
+    real = getattr(ts, name)
+
+    def spy(mesh, window, *a, **k):
+        step = real(mesh, window, *a, **k)
+
+        def run(*args):
+            seen.append((np.asarray(args[x_pos]), window))
+            return step(*args)
+        return run
+
+    monkeypatch.setattr(ts, name, spy)
+    kw = dict(range_bin="7m", ping_time_bin="15s", chunk_pings=13, device="cpu")
+    if pad == "full_chunk":
+        et.run_survey_mvbs_from_raw([raw_files["ragged"], raw_files["skip"]], **kw)
+    else:  # 4 ping shards: chunks of 16, the last 9 pings padded to 12
+        sv = et.calibrate.compute_Sv(et.open_raw(raw_files["ragged"], sonar_model="EK60"),
+                                     device="cpu")
+        et.run_survey_mvbs([sv], mesh=et.parallel.make_mesh(devices=["cpu"] * 4), **kw)
+    parked = []
+    for x_rel, window in seen:
+        n_real = int((x_rel < window).sum())
+        assert (x_rel[:n_real] >= 0).all() and (x_rel[n_real:] == window).all()
+        parked.append(len(x_rel) - n_real)
+    # ragged's 41 pings and skip's 37 in chunks of 13; ragged's in 16, 16, 9 + 3
+    assert parked == ([0, 0, 0, 11, 0, 0, 2] if pad == "full_chunk" else [0, 0, 3])
+
+
 def test_streamed_equals_eager_exactly(raw_files):
     files = list(raw_files.values())
     kw = dict(range_bin="5m", ping_time_bin="20s", chunk_pings=16, device="cpu")

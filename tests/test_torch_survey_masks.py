@@ -223,7 +223,7 @@ class TestFreqDiffPower:
         real = ts.sharded_mvbs_partials_freqdiff
         monkeypatch.setattr(ts, "sharded_mvbs_partials_freqdiff",
                             lambda *a, **k: seen.append(1) or real(*a, **k))
-        monkeypatch.setattr(ts, "_run_streamed", lambda *a, **k: pytest.fail("streamed"))
+        monkeypatch.setattr(ts, "_plan_from_scan", lambda *a, **k: pytest.fail("streamed"))
         et.run_survey_mvbs_from_raw([ek60_file, ek60_file], sonar_model="EK60",
                                     range_bin="20m", ping_time_bin="500s", chunk_pings=16,
                                     freq_diff="38kHz - 18kHz > 3.0dB", device="cpu")

@@ -106,7 +106,7 @@ def test_pool_equals_in_process_bit_for_bit(files, pool_calls, monkeypatch, mode
     def no_streamer(*a, **k):
         raise AssertionError("the prefetch streamer ran under workers=")
 
-    monkeypatch.setattr(ts, "_run_streamed", no_streamer)
+    monkeypatch.setattr(ts, "_plan_from_scan", no_streamer)
     pooled = et.run_survey_mvbs_from_raw(files[model], workers=2, **kw)
     assert pool_calls == [(3, 2)]
     g, w = np.asarray(pooled["Sv"].values), np.asarray(serial["Sv"].values)
