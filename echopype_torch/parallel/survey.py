@@ -52,13 +52,16 @@ masks, ``compute_Sv`` of the complex chunks).
 
 The host-to-device copies are plain synchronous ``.to(device)``; the two
 int16 staging buffers alternate, so pinned asynchronous copies can replace
-them later without a buffer being overwritten while a copy reads it.
+them later without a buffer being overwritten while a copy reads it.  The
+fused complex path stages each (channel, chunk) in one float32 buffer pair,
+page-locked on a card (:class:`_ComplexChunkStage`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -78,7 +81,7 @@ from ..utils.compute import _lin2log
 from ..utils.geodesy import pairwise_distance_nmi
 from ..utils.io import is_remote_path, open_source
 from ..utils.log import _init_logger
-from ..utils.profiling import StageTimer, stage
+from ..utils.profiling import StageTimer, count, stage
 from ..utils.prov import echopype_prov_attrs
 from ..xrlite import Dataset
 from .mesh import Mesh, check_mesh
@@ -1074,6 +1077,60 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
     return _finalize(sums, counts, chans, plan, timer, dev)
 
 
+class _ComplexChunkStage:
+    """Each (channel, chunk) of a complex beam group as float32 [n, R, B]
+    samples and its valid lengths, staged for the fused step.
+
+    One buffer pair of ``rows`` x R x B float32 serves every chunk of the
+    call, made again only for a file of another R or B; torch's ``copy_``
+    narrows the float64 group into it on its intra-op threads (round to
+    nearest even, NaN stays NaN: ``np.asarray(group, "f4")`` bit for bit).
+    On a card the pair is page-locked, so the step's copy to the card
+    reads pinned memory, and that copy is blocking: the pair is free for
+    the next chunk when the step returns.  The step keeps no reference to
+    what it is handed, so each chunk may overwrite the last.  On the CPU
+    the chunk goes out as a NumPy view, which the step counts as bytes
+    taken from outside the device, as it counts the card's copy.
+    """
+
+    def __init__(self, rows, dev):
+        self.rows = rows
+        self.pinned = dev.type == "cuda"
+        self.bufs = ()
+        self.src = ()
+
+    def file(self, bs_r, bs_i):
+        """Take one file's ``backscatter_r`` / ``_i`` ([C, P, R] or
+        [C, P, R, B], float64 or float32) for :meth:`chunk`."""
+        with warnings.catch_warnings():  # read-only values: only ever read
+            warnings.simplefilter("ignore", UserWarning)
+            src = [torch.from_numpy(np.asarray(a)) for a in (bs_r, bs_i)]
+        if src[0].ndim == 3:  # no beam dim: one sector
+            src = [s.unsqueeze(-1) for s in src]
+        shape = (self.rows, *src[0].shape[2:])
+        if not self.bufs or self.bufs[0].shape != shape:
+            self.bufs = tuple(torch.empty(shape, dtype=torch.float32, pin_memory=self.pinned)
+                              for _ in range(2))
+        self.src = src
+
+    def chunk(self, ci, sl):
+        """(bs_r, bs_i, valid_len) of channel ``ci``'s pings ``sl``:
+        float32 [n, R, B] in the buffer pair, and the non-NaN samples of
+        sector 0 along R (int32 [n]; a count, not the end of the first
+        run, so an interior NaN shortens it by one).  Counter
+        ``bb_pinned_bytes``: the bytes staged in page-locked memory."""
+        with stage("bb_host_stage"):
+            n = sl.stop - sl.start
+            r, i = (b[:n] for b in self.bufs)
+            r.copy_(self.src[0][ci, sl])
+            i.copy_(self.src[1][ci, sl])
+            valid_len = (~torch.isnan(r[..., 0])).sum(dim=1, dtype=torch.int32).numpy()
+            if self.pinned:
+                count("bb_pinned_bytes", 2 * r.numel() * r.element_size())
+                return r, i, valid_len
+            return r.numpy(), i.numpy(), valid_len
+
+
 def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_bin_m,
                        chunk_pings, sv_kw, timer, dev, fd=None):
     """Fused complex-channel streaming: one device pass per (channel, chunk)
@@ -1120,6 +1177,8 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
     r_edges_f4 = plan.range_edges.astype("f4")
     acc = plan.accumulator(len(chans), timer)
     ch_pos = {str(c): i for i, c in enumerate(chans)}
+    staged = _ComplexChunkStage(min(plan.chunk_pings, max(map(len, plan.x_ids), default=0)),
+                                dev)
 
     for cal, scal, x_ids in zip(cals, scals, plan.x_ids):
         with timer.stage("param_resolution"):
@@ -1143,12 +1202,8 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
                         *(np.ascontiguousarray(a, dtype="f4") for a in (rep.real, rep.imag)),
                         np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0,
                     ))
-            with stage("bb_host_stage"):  # float32 samples, valid lengths, TVG boundary
-                bs_r_all = np.asarray(beam["backscatter_r"].values, dtype="f4")
-                bs_i_all = np.asarray(beam["backscatter_i"].values, dtype="f4")
-                if bs_r_all.ndim == 3:  # no beam dim: one sector
-                    bs_r_all, bs_i_all = bs_r_all[..., None], bs_i_all[..., None]
-                valid_len = (~np.isnan(bs_r_all[..., 0])).sum(axis=2).astype("i4")
+            with stage("bb_host_stage"):  # the samples' source, the TVG boundary
+                staged.file(beam["backscatter_r"].values, beam["backscatter_i"].values)
                 # the first sample with r_tvg > 0, decided in float64 (the
                 # chunked path's boundary sample)
                 k0 = np.maximum(np.floor(scal["shift"] / np.maximum(scal["dr"], 1e-30)) + 1,
@@ -1161,10 +1216,11 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
                     by_pos = {}
                     for ci, cid in enumerate(ch_ids):
                         hr, hi, inv_norm = reps[ci]
+                        bs_r, bs_i, valid_len = staged.chunk(ci, sl)
                         by_pos[ch_pos[cid]] = bb_chunk_sv(
-                            bs_r_all[ci, sl], bs_i_all[ci, sl], hr, hi, inv_norm,
+                            bs_r, bs_i, hr, hi, inv_norm,
                             z_coef[ci, sl], dr[ci, sl], shift[ci, sl], alpha[ci, sl],
-                            offset[ci, sl], k0[ci, sl], valid_len[ci, sl], do_pc, device=dev)
+                            offset[ci, sl], k0[ci, sl], valid_len, do_pc, device=dev)
                     sv = masked(torch.stack([by_pos[i][0] for i in range(len(chans))]))
                     er = torch.stack([by_pos[i][1] for i in range(len(chans))])
                     s, c, _ = binning.binned_window_partials(
@@ -1176,10 +1232,11 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
             hr, hi, inv_norm = reps[ci]
             for sl, x_base, x_rel in plan.chunks(x_ids):
                 with timer.stage("device_fused"):
+                    bs_r, bs_i, valid_len = staged.chunk(ci, sl)
                     s, c = bb_chunk_window_partials(
-                        bs_r_all[ci, sl], bs_i_all[ci, sl], hr, hi, inv_norm, z_coef[ci, sl],
+                        bs_r, bs_i, hr, hi, inv_norm, z_coef[ci, sl],
                         dr[ci, sl], shift[ci, sl], alpha[ci, sl], offset[ci, sl], k0[ci, sl],
-                        valid_len[ci, sl], x_rel, r_edges_f4, plan.window, do_pc,
+                        valid_len, x_rel, r_edges_f4, plan.window, do_pc,
                         uniform_er=uniform_er, device=dev,
                     )
                 acc.push(s, c, x_base, ch=ch_pos[cid])

@@ -605,6 +605,53 @@ def test_fused_bb_chunk_rerun_bit_identical(cuda, uniform_er):
     assert (c_c > 0).any()
 
 
+def test_fused_survey_stages_in_pinned_memory(cuda, tmp_path, monkeypatch):
+    """The fused broadband survey on the card hands every (channel, chunk)
+    to the step in page-locked memory; under a trace ``bb_pinned_bytes``
+    equals ``bb_h2d_bytes``.  Its MVBS equals, bit for bit, the same survey
+    on the card with the chunks staged as on the CPU (pageable NumPy), and
+    is within 1e-4 dB of the survey on the CPU."""
+    import echopype_torch as et
+    from echopype_torch.ops import bb_pipeline as tbb
+    from echopype_torch.parallel import survey as ts
+    from echopype_torch.utils.profiling import TRACED, trace
+    from synth_ek80 import write_ek80_raw
+
+    t0 = np.datetime64("2021-02-01T00:00:00", "ns")
+    files = []
+    for i in range(2):
+        p = tmp_path / f"BB{i}-D20210201-T000000.raw"
+        write_ek80_raw(p, n_pings=10, n_samples=256, seed=i, t0=t0 + np.timedelta64(12 * i, "s"),
+                       with_power_channel=False, with_cw_complex=False)
+        files.append(str(p))
+    kw = dict(sonar_model="EK80", waveform_mode="BB", encode_mode="complex", device_fused=True,
+              range_bin="0.5m", ping_time_bin="5s", chunk_pings=4)
+    pinned, real = [], tbb.bb_chunk_window_partials
+
+    def spy(bs_r, bs_i, *a, **k):
+        pinned.append(all(isinstance(x, torch.Tensor) and x.is_pinned() for x in (bs_r, bs_i)))
+        return real(bs_r, bs_i, *a, **k)
+
+    monkeypatch.setattr(tbb, "bb_chunk_window_partials", spy)
+    with trace(str(tmp_path / "trace")):
+        got = et.run_survey_mvbs_from_raw(files, device=cuda, **kw)
+    assert len(pinned) == 2 * 3 and all(pinned)  # files x chunks of the one FM channel
+    assert TRACED.counters["bb_pinned_bytes"] == TRACED.counters["bb_h2d_bytes"] > 0
+
+    stage_init = ts._ComplexChunkStage.__init__
+    monkeypatch.setattr(ts._ComplexChunkStage, "__init__",
+                        lambda self, rows, dev: stage_init(self, rows, torch.device("cpu")))
+    pageable = et.run_survey_mvbs_from_raw(files, device=cuda, **kw)
+    monkeypatch.undo()
+    assert len(pinned) == 12 and not any(pinned[6:])
+    on_cpu = et.run_survey_mvbs_from_raw(files, device="cpu", **kw)
+    g, w, c = (np.asarray(r["Sv"].values) for r in (got, pageable, on_cpu))
+    np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(np.isnan(g), np.isnan(c))
+    np.testing.assert_allclose(g, c, rtol=0, atol=1e-4, equal_nan=True)
+    assert np.isfinite(g).any()
+
+
 # ----------------------------------------------- clean masks and freq_diff
 def _windows_cases(kind):
     """(program, args, kwargs) of ops/windows.py on 3 x 300 x 500 Sv with

@@ -240,6 +240,76 @@ def test_chain_matches_jax(raw, wm, em, rb):
     _assert_mvbs_close(got, want, 1e-4)
 
 
+def _complex_group(seed, R, beam_dim=True, C=3, P=11, B=4):
+    """A float64 [C, P, R, B] (or [C, P, R]) complex part with values that
+    round to even, overflow, go subnormal, a ragged ping and an interior
+    NaN in sector 0."""
+    rng = np.random.default_rng(seed)
+    g = rng.normal(0, 1e-3, (C, P, R, B))
+    g[0, 0, :4, 0] = [1 + 2.0**-24, 1 + 3 * 2.0**-24, 1e39, 1e-42]
+    g[1, 4, R - 9:] = np.nan  # a ragged ping
+    g[2, 9, 5, 0] = np.nan  # interior, counted out of the valid length
+    return g if beam_dim else g[..., 0]
+
+
+@pytest.mark.parametrize("beam_dim", [True, False], ids=["4d", "3d"])
+def test_complex_chunk_stage_equals_the_whole_file_cast(beam_dim):
+    """Each (channel, chunk) staged through the one reused buffer pair is
+    ``np.asarray(group, "f4")[ci, sl]`` bit for bit, and its valid length
+    the whole-file NaN count of sector 0; the last chunk is short (11
+    pings in chunks of 4), and the second file's R differs, so its chunks
+    take a new pair."""
+    staged = ts._ComplexChunkStage(4, torch.device("cpu"))
+    pairs = []
+    for seed, R in ((0, 40), (1, 57)):
+        bs_r, bs_i = (_complex_group(seed + k, R, beam_dim) for k in (0, 10))
+        staged.file(bs_r, bs_i)
+        pairs.append(staged.bufs)
+        with np.errstate(over="ignore"):  # 1e39 -> inf, as the stage narrows it
+            want_r, want_i = (np.asarray(a, "f4").reshape(3, 11, R, -1) for a in (bs_r, bs_i))
+        want_vl = (~np.isnan(want_r[..., 0])).sum(axis=2)
+        for ci in range(3):
+            for lo in (0, 4, 8):
+                sl = slice(lo, min(lo + 4, 11))
+                r, i, vl = staged.chunk(ci, sl)
+                assert isinstance(r, np.ndarray) and r.shape == (sl.stop - lo, R, want_r.shape[3])
+                np.testing.assert_array_equal(r.view("u4"), want_r[ci, sl].view("u4"))
+                np.testing.assert_array_equal(i.view("u4"), want_i[ci, sl].view("u4"))
+                assert vl.dtype == np.int32
+                np.testing.assert_array_equal(vl, want_vl[ci, sl])
+        assert staged.bufs is pairs[-1]  # one pair for every chunk of the file
+    assert pairs[0][0].shape[1] == 40 and pairs[1][0].shape[1] == 57
+    assert want_vl[2, 9] == 56 and want_vl[1, 4] == 48
+
+
+def test_complex_chunk_stage_aliases_nothing_across_channels():
+    """The freq-diff route's stack: each channel's chunk staged in turn
+    through the one pair and run to Sv (``bb_chunk_sv``), then stacked,
+    equals each channel's chunk of the whole-file float32 cast run alone."""
+    ops = _chunk_operands(3)
+    P, R, B = ops[0].shape
+    rng = np.random.default_rng(5)
+    bs_r, bs_i = (np.stack([a] + [a * rng.uniform(0.5, 2.0) for _ in range(2)]).astype("f8")
+                  for a in ops[:2])
+    staged = ts._ComplexChunkStage(5, torch.device("cpu"))
+    staged.file(bs_r, bs_i)
+    f4_r, f4_i = np.asarray(bs_r, "f4"), np.asarray(bs_i, "f4")
+    for lo in range(0, P, 5):
+        sl = slice(lo, min(lo + 5, P))
+        per_ping = [a[sl] for a in ops[5:11]]
+        stacked = []
+        for ci in range(3):
+            r, i, vl = staged.chunk(ci, sl)
+            stacked.append(tbb.bb_chunk_sv(r, i, *ops[2:5], *per_ping, vl, True, device="cpu"))
+        for ci in range(3):
+            vl = (~np.isnan(f4_r[ci, sl, :, 0])).sum(axis=1).astype("i4")
+            alone = tbb.bb_chunk_sv(f4_r[ci, sl], f4_i[ci, sl], *ops[2:5], *per_ping, vl, True,
+                                    device="cpu")
+            for got, want in zip(stacked[ci], alone):
+                torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        assert not torch.equal(torch.nan_to_num(stacked[0][0]), torch.nan_to_num(stacked[1][0]))
+
+
 def test_accumulator_takes_one_channel_partials():
     acc = ts._PartialAccumulator(2, 4, 3, 2, StageTimer())
     acc.push(torch.ones(2, 3), torch.ones(2, 3), 1, ch=1)
