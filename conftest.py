@@ -7,13 +7,16 @@ import pytest
 @pytest.fixture(autouse=True)
 def want_holds_the_broadband_readers(request, monkeypatch):
     """For each test of ``bench_port/tests/test_bench_port_metrics.py``, the
-    cases of the broadband cell's readers (``test_bench_port_bb.py``) join
-    its ``WANT``, as the two fixtures below this folder join those of the
-    stage and route readers, so that its test that every manifest metric
-    has a reader and a case holds.  Nothing changes at import time, and
-    nothing outlives the test."""
+    cases of the broadband and frequency-differencing cells' readers
+    (``test_bench_port_bb.py``, ``test_bench_port_fd.py``) join its
+    ``WANT``, as the two fixtures below this folder join those of the stage
+    and route readers, so that its test that every manifest metric has a
+    reader and a case holds.  Nothing changes at import time, and nothing
+    outlives the test."""
     if request.path.name != "test_bench_port_metrics.py":
         return
     from test_bench_port_bb import BB_CASES
+    from test_bench_port_fd import FD_CASES
 
-    monkeypatch.setattr(request.module, "WANT", {**request.module.WANT, **BB_CASES})
+    monkeypatch.setattr(request.module, "WANT",
+                        {**request.module.WANT, **BB_CASES, **FD_CASES})

@@ -549,7 +549,10 @@ def sharded_mvbs_partials_freqdiff(mesh, window: int, n_r: int, ia: int, ib: int
     def shard(dev, pos, power, dr, tvg_shift, absorption, offset, valid_len, x_rel, r0, bounds,
               diff_db):
         def on(a, dtype=torch.float32):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+            # a blocking copy converts on the host: ``dtype``'s bytes cross, as h2d_bytes
+            host = torch.from_numpy(np.ascontiguousarray(a))
+            count("h2d_bytes", host.numel() * dtype.itemsize)
+            return host.to(dev, dtype)
 
         R = power.shape[2]
         lane = torch.arange(R, device=dev)

@@ -111,12 +111,13 @@ class _PartialAccumulator:
     and counts by default; the NASC streamer adds nan counts and heights).
     """
 
-    def __init__(self, n_ch, n_x, n_r, window, timer, n_out=2):
+    def __init__(self, n_ch, n_x, n_r, window, timer, n_out=2, counts_counter=None):
         self.parts = [np.zeros((n_ch, n_x, n_r), dtype="f8") for _ in range(n_out)]
         self.sums, self.counts = self.parts[:2]
         self.window = window
         self.n_x = n_x
         self.timer = timer
+        self.counts_counter = counts_counter
         self._pending = None
 
     def push(self, *item, ch=None):
@@ -131,9 +132,12 @@ class _PartialAccumulator:
         rows = slice(None) if ch is None else ch
         with self.timer.stage("accumulate"):
             w_eff = min(self.window, self.n_x - x_base)
+            partials = [p.cpu().numpy() if isinstance(p, torch.Tensor) else p for p in partials]
             for acc, p in zip(self.parts, partials):
-                p = p.cpu().numpy() if isinstance(p, torch.Tensor) else p
                 acc[rows, x_base : x_base + w_eff] += p[..., :w_eff, :]
+            if self.counts_counter is not None and torch.autograd._profiler_enabled():
+                # while traced: the samples the chunk's bins took, over every channel
+                count(self.counts_counter, int(partials[1][..., :w_eff, :].sum(dtype="f8")))
 
     def finish(self):
         if self._pending is not None:
@@ -227,9 +231,12 @@ class _SurveyPlan:
         return cls(x_ids, ping_edges, r_max, range_bin_m, chunk_pings, n_channels, mesh,
                    unit_times)
 
-    def accumulator(self, n_channels, timer, n_out=2):
-        """The survey's host float64 sums over the plan's bins."""
-        return _PartialAccumulator(n_channels, self.n_x, self.n_r, self.window, timer, n_out)
+    def accumulator(self, n_channels, timer, n_out=2, counts_counter=None):
+        """The survey's host float64 sums over the plan's bins; with
+        ``counts_counter``, a traced window counts the samples binned
+        under that name as each chunk's counts are read back."""
+        return _PartialAccumulator(n_channels, self.n_x, self.n_r, self.window, timer, n_out,
+                                   counts_counter)
 
     def chunks(self, x_ids):
         """Each chunk of a unit whose pings have x bins ``x_ids``: (its ping
@@ -460,12 +467,16 @@ class _PowerChunkStreamer:
         """Stream one file's chunks.  Uniform files run K1 with host
         closed-form counts; the others run K2, which also counts.  With
         ``fd`` (a resolved frequency-differencing criterion) every chunk
-        runs the masked step, whose counts depend on the data.  ``r0``
+        runs the masked step (stage ``freqdiff_step``), whose counts depend
+        on the data; a traced window then counts the chunks' valid samples
+        (``fd_valid_samples``) and, as the accumulator reads the counts
+        back, those the mask kept (``fd_kept_samples``).  ``r0``
         [C, P] is the echo_range intercept (AZFP), None for EK."""
         timer, acc, plan = self.timer, self.acc, self.plan
         chunk_pings, window = plan.chunk_pings, plan.window
-        # the device stage's own name where 4-byte float32 samples go up
-        dev_stage = "device_mvbs" if self.ship_i16 else "device_mvbs_f32"
+        # the device stage's own name: the masked step, or K1/K2 on int16 or float32 samples
+        dev_stage = ("freqdiff_step" if fd is not None
+                     else "device_mvbs" if self.ship_i16 else "device_mvbs_f32")
         with timer.stage("valid_len"):  # a pass over the file's power, and K1's bounds
             host_counts = (
                 closed_bounds_k0_np(dr[:, 0], shift[:, 0], self.r_edges_f4, power.shape[2])
@@ -494,6 +505,9 @@ class _PowerChunkStreamer:
                                          constant_values=np.nan)
             x_rel = plan.park(x_rel, pad)
             vl_chunk = np.pad(valid_len[:, sl], ((0, 0), (0, pad)))
+            if fd is not None and torch.autograd._profiler_enabled():
+                # while traced: the samples the mask decides on, over every channel
+                count("fd_valid_samples", int(valid_len[:, sl].sum(dtype="i8")))
             args = (p_chunk, _pad2(dr, 1.0), _pad2(shift), _pad2(alpha), _pad2(offset),
                     vl_chunk, x_rel.astype("i4"), self.r_edges_f4)
             r0_chunk = None if r0 is None else _pad2(r0)
@@ -894,7 +908,8 @@ def _stream_power(raw_files, plan, max_samples, decoded, sonar_model, range_bin_
             if chans0 is None:
                 chans0 = chans
                 fd = _resolve_freq_diff(freq_diff, chans, freq)
-                acc = plan.accumulator(len(chans), timer)
+                acc = plan.accumulator(len(chans), timer,
+                                       counts_counter=None if fd is None else "fd_kept_samples")
                 streamer = _PowerChunkStreamer(plan, len(chans), max_samples, acc, timer, dev,
                                                ship_i16=sonar_model not in _AZFP_MODELS)
             elif chans != chans0:
