@@ -63,7 +63,10 @@ def _check_file(
     return raw_str, bot_file, idx_file
 
 
-@add_processing_level("L1A", is_echodata=True)
+_stamp_l1a = add_processing_level("L1A", is_echodata=True)
+
+
+@_stamp_l1a
 def open_raw(
     raw_file,
     sonar_model: str,
@@ -77,6 +80,29 @@ def open_raw(
     **kwargs,
 ) -> EchoData:
     """Convert a raw instrument file into a standardized EchoData object."""
+    return _convert(raw_file, sonar_model, xml_path, include_bot, include_idx, convert_params,
+                    storage_options, use_swap)
+
+
+def _open_raw_unfilled(raw_file, sonar_model: str, xml_path=None, use_swap="auto"):
+    """``open_raw``'s EchoData, with the EK80 complex beam groups left
+    without ``backscatter_r`` / ``_i``, and {group path:
+    ``set_groups_ek80.ComplexLayout``} of those groups: each keeps its
+    samples in the parser's float32 planes, and ``layout.fill(ed[path])``
+    makes the group what ``open_raw`` gives.  Where ``open_raw`` would spill
+    to swap files (``use_swap``, decided on the bytes the filled tree would
+    hold), the groups are filled and spilled as there, and the dict is
+    empty."""
+    layouts = {}
+    ed = _stamp_l1a(_convert)(raw_file, sonar_model, xml_path, use_swap=use_swap,
+                              complex_layouts=layouts)
+    return ed, layouts
+
+
+def _convert(raw_file, sonar_model, xml_path=None, include_bot=False, include_idx=False,
+             convert_params=None, storage_options=None, use_swap="auto", complex_layouts=None):
+    """open_raw's conversion; with a dict ``complex_layouts``, as
+    :func:`_open_raw_unfilled` says."""
     if sonar_model not in SONAR_MODELS:
         raise ValueError(
             f"Unsupported sonar_model {sonar_model!r}; must be one of {sorted(SONAR_MODELS)}"
@@ -105,6 +131,7 @@ def open_raw(
                             params=convert_params)
 
         # beam groups first: EK80's Sonar group records the resulting group split
+        sg.fill_complex = complex_layouts is None
         beam_groups = sg.set_beam()
         tree = {
             "Top-level": sg.set_toplevel(),
@@ -119,16 +146,24 @@ def open_raw(
             tree[f"Sonar/Beam_group{i}"] = bg
 
         ed = EchoData(tree=tree, source_file=raw_file, sonar_model=sonar_model)
-        if _should_swap(use_swap, ed):
+        unfilled = {f"Sonar/Beam_group{i + 1}": layout
+                    for i, layout in getattr(sg, "complex_layouts", {}).items()}
+        if _should_swap(use_swap, ed, sum(layout.nbytes for layout in unfilled.values())):
+            for path, layout in unfilled.items():
+                layout.fill(ed[path])
+            unfilled = {}
             _spill_to_swap(ed)
+        if complex_layouts is not None:
+            complex_layouts.update(unfilled)
     return ed
 
 
-def _should_swap(use_swap, ed) -> bool:
+def _should_swap(use_swap, ed, unfilled_bytes=0) -> bool:
     """Resolve the ``use_swap`` tri-state (convert/api.py:354, parse_base.py:129).
 
     ``auto`` spills when the in-memory tree exceeds 40% of available RAM,
-    mirroring the reference's psutil threshold.
+    mirroring the reference's psutil threshold; ``unfilled_bytes`` counts
+    the samples of groups not filled yet.
     """
     if use_swap is True:
         return True
@@ -144,7 +179,7 @@ def _should_swap(use_swap, ed) -> bool:
         import os
 
         avail = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
-    return ed.nbytes > 0.4 * avail
+    return ed.nbytes + unfilled_bytes > 0.4 * avail
 
 
 def _spill_to_swap(ed, min_bytes: int = 16_384):

@@ -10,11 +10,13 @@ on ``cal_frequency``, and WBT/PC filter coefficients + decimation on
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
 from ..utils.log import _init_logger
-from ..utils.profiling import stage
+from ..utils.profiling import count, stage
 from ..xrlite import DataArray, Dataset
 from .set_groups_base import SetGroupsBase
 
@@ -48,6 +50,8 @@ class SetGroupsEK80(SetGroupsBase):
         }
         self.sorted_channel["all"] = sorted(p.ch_ids["power"] + p.ch_ids["complex"])
         self.beam_group_map = {}
+        #: whether set_beam widens the complex samples into their groups
+        self.fill_complex = True
 
     # ------------------------------------------------------------------- env
     def set_env(self) -> Dataset:
@@ -345,16 +349,23 @@ class SetGroupsEK80(SetGroupsBase):
         return data
 
     def set_beam(self) -> list:
-        p = self.parser_obj
+        """The beam groups in order.  With :attr:`fill_complex` False the
+        complex groups come without their samples, and
+        :attr:`complex_layouts` holds each one's :class:`ComplexLayout` by
+        its position in the returned list."""
         groups = []  # (mode_name, dataset)
+        self.complex_layouts = {}
 
         # ---- complex channels split by FM / CW
         complex_ch = self.sorted_channel["complex"]
         if complex_ch:
             for mode, want in (("complex_FM", "LFM"), ("complex_CW", "CW")):
                 with stage("ek80_beam_complex"):
-                    ds = self._assemble_complex_group(complex_ch, want)
+                    ds, layout = self._assemble_complex_group(complex_ch, want,
+                                                              fill=self.fill_complex)
                 if ds is not None:
+                    if not self.fill_complex:
+                        self.complex_layouts[len(groups)] = layout
                     groups.append((mode, ds))
         power_ch = self.sorted_channel["power"]
         if power_ch:
@@ -399,7 +410,11 @@ class SetGroupsEK80(SetGroupsBase):
                     break
         return times[keep], rows[keep]
 
-    def _assemble_complex_group(self, chans, want_type):
+    def _assemble_complex_group(self, chans, want_type, fill=True):
+        """The complex group of ``chans``' pings of transmit type
+        ``want_type`` and its :class:`ComplexLayout`, or (None, None).
+        ``fill`` widens the samples into ``backscatter_r`` / ``_i``;
+        without it the group has neither, and ``layout.fill(ds)`` adds them."""
         p = self.parser_obj
         sel_times = {}
         sel_rows = {}
@@ -414,49 +429,26 @@ class SetGroupsEK80(SetGroupsBase):
                 sel_times[ch] = times
                 sel_rows[ch] = rows
         if not sel_times:
-            return None
+            return None, None
         union_time, time_map = self.union_times(sel_times)
         n_t = len(union_time)
         chans_used = list(sel_times)
         self._group_chans = chans_used
-
-        max_r = max(p.ping_data_dict["complex"][ch]["real"].shape[1] for ch in chans_used)
-        n_beam = max(p.ping_data_dict["complex"][ch]["real"].shape[2] for ch in chans_used)
-        shape = (len(chans_used), n_t, max_r, n_beam)
-        # np.empty + targeted NaN fill of the uncovered complement: the NaN
-        # prefill of [channel, ping, range, beam] blocks dominates warm
-        # ingest otherwise (same finding as set_groups_ek60.set_beam)
-        bs_r = np.empty(shape)
-        bs_i = np.empty(shape)
+        comp = p.ping_data_dict["complex"]
+        layout = ComplexLayout(
+            chans_used, union_time,
+            [(comp[ch]["real"], comp[ch]["imag"], complex_runs(sel_rows[ch], time_map[ch]))
+             for ch in chans_used],
+            attrs=[self._varattrs["beam_var_default"][k] for k in ("backscatter_r",
+                                                                    "backscatter_i")],
+        )
         arrays = {}
         tx_type = np.full((len(chans_used), n_t), "", dtype=object)
         f_start = np.full((len(chans_used), n_t), np.nan)
         f_stop = np.full((len(chans_used), n_t), np.nan)
         for ci, ch in enumerate(chans_used):
-            self._ci = ci
             rows_src = sel_rows[ch]
             rows_dst = time_map[ch]
-            comp = p.ping_data_dict["complex"][ch]
-            r, b = comp["real"].shape[1], comp["real"].shape[2]
-            covered = np.zeros(n_t, dtype=bool)
-            covered[rows_dst] = True
-            if not covered.all():
-                bs_r[ci, ~covered] = np.nan
-                bs_i[ci, ~covered] = np.nan
-            # the parser's float32 widened once, run by run where the parser's
-            # rows and the group's pings both advance by one: torch's CPU
-            # copy does it, and the first touch of the fresh group's pages,
-            # on the intra-op threads, over the host's cores
-            cut = np.flatnonzero((np.diff(rows_src) != 1) | (np.diff(rows_dst) != 1)) + 1
-            for s0, s1 in zip(np.r_[0, cut], np.r_[cut, len(rows_src)]):
-                src = slice(rows_src[s0], rows_src[s1 - 1] + 1)
-                dst = slice(rows_dst[s0], rows_dst[s1 - 1] + 1)
-                for bs, part in ((bs_r, comp["real"]), (bs_i, comp["imag"])):
-                    torch.from_numpy(bs[ci, dst, :r, :b]).copy_(torch.from_numpy(part[src]))
-                    if r < max_r:
-                        bs[ci, dst, r:] = np.nan
-                    if b < n_beam:
-                        bs[ci, dst, :r, b:] = np.nan
             self._per_ping_vars_subset(ch, rows_src, rows_dst, n_t, arrays, len(chans_used))
             tx_type[ci, rows_dst] = want_type
             if want_type == "LFM":
@@ -472,25 +464,17 @@ class SetGroupsEK80(SetGroupsBase):
                 f_stop[ci, rows_dst] = freq
 
         ds = self._build_group_ds(
-            chans_used, union_time, arrays, tx_type, f_start, f_stop, max_r,
+            chans_used, union_time, arrays, tx_type, f_start, f_stop, layout.max_r,
             freq_ramp="per_ping" if want_type == "LFM" else "none",
         )
-        ds["backscatter_r"] = (
-            ("channel", "ping_time", "range_sample", "beam"),
-            bs_r,
-            self._varattrs["beam_var_default"]["backscatter_r"],
-        )
-        ds["backscatter_i"] = (
-            ("channel", "ping_time", "range_sample", "beam"),
-            bs_i,
-            self._varattrs["beam_var_default"]["backscatter_i"],
-        )
+        if fill:
+            layout.fill(ds)
         ds.coords["beam"] = DataArray(
-            np.arange(1, n_beam + 1).astype(str).astype(object), ("beam",),
+            np.arange(1, layout.n_beam + 1).astype(str).astype(object), ("beam",),
             attrs=self._varattrs["beam_coord_default"]["beam"], name="beam",
         )
         ds = self._add_transmit_pulse_complex(ds, chans_used, sel_rows, time_map, n_t)
-        return ds
+        return ds, layout
 
     def _add_transmit_pulse_complex(self, ds, chans_used, sel_rows, time_map, n_t):
         """RAW4 transmit pulse -> transmit_pulse_r/i on transmit_sample
@@ -850,3 +834,116 @@ class SetGroupsEK80(SetGroupsBase):
             ds[f"{name}_{FILTER_IMAG}"] = (("channel", "filter_time", f"{name}_filter_n"), im)
             ds[f"{name}_{DECIMATION}"] = (("channel", "filter_time"), deci)
         return ds
+
+
+def complex_runs(rows_src, rows_dst):
+    """The runs of a complex group's mapping, int64 [k, 3] of (parser row,
+    group ping, length): stretches in which the parser's row and the group's
+    ping both advance by one."""
+    rows_src, rows_dst = np.asarray(rows_src, "i8"), np.asarray(rows_dst, "i8")
+    if not len(rows_src):
+        return np.empty((0, 3), "i8")
+    cut = np.flatnonzero((np.diff(rows_src) != 1) | (np.diff(rows_dst) != 1)) + 1
+    starts, stops = np.r_[0, cut], np.r_[cut, len(rows_src)]
+    return np.stack([rows_src[starts], rows_dst[starts], stops - starts], axis=1)
+
+
+class ComplexLayout:
+    """Where each sample of a complex beam group comes from, without the
+    group's float64 samples.
+
+    Per channel, the parser's ``real`` / ``imag`` planes ([rows, r, b];
+    [rows, r] is one sector) and the runs of :func:`complex_runs`.  The one
+    rule both :meth:`fill` and the fused survey's staging apply
+    (:meth:`copy_pings`): group ping <- parser row, run by run; a ping no
+    row maps to is NaN; range samples >= the channel's ``r`` and sectors >=
+    its ``b`` are NaN.  ``planes`` says whether the planes are the parser's
+    (a group's own samples otherwise, :meth:`of_group`).
+    """
+
+    def __init__(self, channels, ping_time, parts, attrs=({}, {}), planes=True):
+        """``parts``: per channel (real, imag, runs)."""
+        self.channels = list(channels)
+        self.ping_time = ping_time
+        self.n_t = len(ping_time)
+        self.attrs = attrs
+        self.planes = planes
+        self.real, self.imag, self.runs = [], [], []
+        for real, imag, runs in parts:
+            if real.ndim == 2:  # one sector
+                real, imag = real[..., None], imag[..., None]
+            self.real.append(real)
+            self.imag.append(imag)
+            self.runs.append(runs)
+        self.max_r = max(a.shape[1] for a in self.real)
+        self.n_beam = max(a.shape[2] for a in self.real)
+
+    @classmethod
+    def of_group(cls, bs_r, bs_i):
+        """The layout of a group's own ``backscatter_r`` / ``_i`` ([C, P, R,
+        B] or [C, P, R]): one run a channel."""
+        n_t = bs_r.shape[1]
+        whole = np.array([[0, 0, n_t]], "i8")
+        return cls(range(bs_r.shape[0]), np.arange(n_t),
+                   [(r, i, whole) for r, i in zip(bs_r, bs_i)], planes=False)
+
+    @property
+    def shape(self):
+        return (len(self.channels), self.n_t, self.max_r, self.n_beam)
+
+    @property
+    def nbytes(self):
+        """The bytes of the float64 ``backscatter_r`` and ``_i`` :meth:`fill` makes."""
+        return 2 * 8 * int(np.prod(self.shape))
+
+    def select(self, channels, ping_time):
+        """The layout of ``channels`` (ids, in that order) over ``ping_time``,
+        a contiguous stretch of the group's pings."""
+        ping_time = np.asarray(ping_time, dtype=self.ping_time.dtype)
+        p0 = int(np.searchsorted(self.ping_time, ping_time[0])) if len(ping_time) else 0
+        if not np.array_equal(self.ping_time[p0:p0 + len(ping_time)], ping_time):
+            raise ValueError("the pings are no contiguous stretch of the group's")
+        parts = []
+        for ch in channels:
+            ci = self.channels.index(ch)
+            runs = self.runs[ci].copy()
+            runs[:, 1] -= p0
+            parts.append((self.real[ci], self.imag[ci], runs))
+        return ComplexLayout(channels, ping_time, parts, self.attrs, self.planes)
+
+    def copy_pings(self, ci, sl, out_r, out_i):
+        """Write channel ``ci``'s group pings ``sl`` into ``out_r`` /
+        ``out_i`` (tensors [n, max_r, n_beam] of any float dtype; ``copy_``
+        converts)."""
+        p0, p1 = sl.start, sl.stop
+        real, imag = self.real[ci], self.imag[ci]
+        r, b = real.shape[1], real.shape[2]
+        src0, dst0, n = self.runs[ci].T
+        lo, hi = np.maximum(dst0, p0), np.minimum(dst0 + n, p1)
+        covered = np.zeros(p1 - p0, dtype=bool)
+        with warnings.catch_warnings():  # read-only planes: only ever read
+            warnings.simplefilter("ignore", UserWarning)
+            for k in np.flatnonzero(lo < hi):
+                src = slice(src0[k] + lo[k] - dst0[k], src0[k] + hi[k] - dst0[k])
+                dst = slice(lo[k] - p0, hi[k] - p0)
+                covered[dst] = True
+                for out, part in ((out_r, real), (out_i, imag)):
+                    out[dst, :r, :b].copy_(torch.from_numpy(part[src]))
+        for out in (out_r, out_i):
+            if r < self.max_r:
+                out[:, r:] = np.nan
+            if b < self.n_beam:
+                out[:, :r, b:] = np.nan
+            if not covered.all():
+                out[torch.from_numpy(np.flatnonzero(~covered))] = np.nan
+
+    def fill(self, ds):
+        """Add the float64 ``backscatter_r`` / ``_i`` to the group ``ds``
+        (counter ``complex_widened_pings``: its channel-pings)."""
+        bs = [np.empty(self.shape) for _ in range(2)]
+        for ci in range(len(self.channels)):
+            self.copy_pings(ci, slice(0, self.n_t),
+                            *(torch.from_numpy(a[ci]) for a in bs))
+        count("complex_widened_pings", len(self.channels) * self.n_t)
+        for name, a, attrs in zip(("backscatter_r", "backscatter_i"), bs, self.attrs):
+            ds[name] = (("channel", "ping_time", "range_sample", "beam"), a, attrs)

@@ -53,15 +53,16 @@ masks, ``compute_Sv`` of the complex chunks).
 The host-to-device copies are plain synchronous ``.to(device)``; the two
 int16 staging buffers alternate, so pinned asynchronous copies can replace
 them later without a buffer being overwritten while a copy reads it.  The
-fused complex path stages each (channel, chunk) in one float32 buffer pair,
-page-locked on a card (:class:`_ComplexChunkStage`).
+fused complex path opens its files without the complex groups' float64
+samples and stages each (channel, chunk) from the parser's float32 planes
+into one float32 buffer pair, page-locked on a card
+(:class:`_ComplexChunkStage`).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import warnings
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -72,8 +73,9 @@ from .. import native
 from ..calibrate.ek import CalibrateEK60
 from ..commongrid.api import _conform_range, _orient_range_axis
 from ..commongrid.utils import _parse_x_bin, get_distance_from_latlon, ping_time_bin_edges
-from ..convert.api import open_raw
+from ..convert.api import _open_raw_unfilled, open_raw
 from ..convert.simrad.decode import INDEX2POWER
+from ..convert.set_groups_ek80 import ComplexLayout
 from ..convert.simrad.framing import CorruptDatagramError, scan_ek_extent
 from ..device import device_name, resolve_device
 from ..ops import binning
@@ -976,13 +978,20 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
 
     sv_kw = dict(env_params=env_params, cal_params=cal_params, waveform_mode=waveform_mode,
                  encode_mode=encode_mode, precision="float32", device=dev)
-    eds, beam_paths, ping_times = [], [], []
+    # the fused route stages its samples from the parser's float32 planes
+    fused = device_fused and mesh is None
+    eds, beam_paths, ping_times, layouts = [], [], [], []
     with timer.stage("ingest"):
         for f in raw_files:
-            ed = open_raw(f, sonar_model=sonar_model, use_swap=use_swap, xml_path=xml_path)
+            if fused:
+                ed, unfilled = _open_raw_unfilled(f, sonar_model, xml_path, use_swap)
+            else:
+                ed, unfilled = open_raw(f, sonar_model=sonar_model, use_swap=use_swap,
+                                        xml_path=xml_path), {}
             bp = retrieve_correct_beam_group(ed, waveform_mode, encode_mode)
             eds.append(ed)
             beam_paths.append(bp)
+            layouts.append(unfilled.get(bp))
             ping_times.append(np.asarray(ed[bp].coords["ping_time"].values,
                                          dtype="datetime64[ns]"))
     chans = list(eds[0][beam_paths[0]].coords["channel"].values)
@@ -999,10 +1008,14 @@ def _run_survey_mvbs_complex(raw_files, sonar_model, waveform_mode, encode_mode,
                        "chunked compute_Sv path")
     elif device_fused:
         if fd is None or not any(multi_epoch):
-            return _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin,
-                                      range_bin_m, chunk_pings, sv_kw, timer, dev, fd=fd)
+            return _run_complex_fused(eds, beam_paths, layouts, chans, ping_times,
+                                      ping_time_bin, range_bin_m, chunk_pings, sv_kw, timer,
+                                      dev, fd=fd)
         logger.warning("device_fused freq_diff with multi-filter_time files uses the "
                        "chunked compute_Sv path")
+        for ed, bp, layout in zip(eds, beam_paths, layouts):
+            if layout is not None:
+                layout.fill(ed[bp])
 
     # global range extent: calibrate one probe ping per file, scaled by the
     # file's worst sample-interval ratio
@@ -1097,13 +1110,16 @@ class _ComplexChunkStage:
     samples and its valid lengths, staged for the fused step.
 
     One buffer pair of ``rows`` x R x B float32 serves every chunk of the
-    call, made again only for a file of another R or B; torch's ``copy_``
-    narrows the float64 group into it on its intra-op threads (round to
-    nearest even, NaN stays NaN: ``np.asarray(group, "f4")`` bit for bit).
-    On a card the pair is page-locked, so the step's copy to the card
-    reads pinned memory, and that copy is blocking: the pair is free for
-    the next chunk when the step returns.  The step keeps no reference to
-    what it is handed, so each chunk may overwrite the last.  On the CPU
+    call, made again only for a file of another R or B.  The group's
+    ``ComplexLayout`` writes each chunk into it (``copy_pings``: torch's
+    ``copy_`` on its intra-op threads): from the parser's float32 planes,
+    ``np.asarray(group, "f4")`` of the filled float64 group bit for bit (a
+    signalling NaN excepted, which the round trip through float64 would
+    quiet); from a group's own samples, narrowed with round to nearest
+    even.  On a card the pair is page-locked, so the step's copy to the
+    card reads pinned memory, and that copy is blocking: the pair is free
+    for the next chunk when the step returns.  The step keeps no reference
+    to what it is handed, so each chunk may overwrite the last.  On the CPU
     the chunk goes out as a NumPy view, which the step counts as bytes
     taken from outside the device, as it counts the card's copy.
     """
@@ -1112,42 +1128,38 @@ class _ComplexChunkStage:
         self.rows = rows
         self.pinned = dev.type == "cuda"
         self.bufs = ()
-        self.src = ()
+        self.layout = None
 
-    def file(self, bs_r, bs_i):
-        """Take one file's ``backscatter_r`` / ``_i`` ([C, P, R] or
-        [C, P, R, B], float64 or float32) for :meth:`chunk`."""
-        with warnings.catch_warnings():  # read-only values: only ever read
-            warnings.simplefilter("ignore", UserWarning)
-            src = [torch.from_numpy(np.asarray(a)) for a in (bs_r, bs_i)]
-        if src[0].ndim == 3:  # no beam dim: one sector
-            src = [s.unsqueeze(-1) for s in src]
-        shape = (self.rows, *src[0].shape[2:])
+    def file(self, layout):
+        """Take one file's group layout for :meth:`chunk`."""
+        shape = (self.rows, layout.max_r, layout.n_beam)
         if not self.bufs or self.bufs[0].shape != shape:
             self.bufs = tuple(torch.empty(shape, dtype=torch.float32, pin_memory=self.pinned)
                               for _ in range(2))
-        self.src = src
+        self.layout = layout
 
     def chunk(self, ci, sl):
         """(bs_r, bs_i, valid_len) of channel ``ci``'s pings ``sl``:
         float32 [n, R, B] in the buffer pair, and the non-NaN samples of
         sector 0 along R (int32 [n]; a count, not the end of the first
-        run, so an interior NaN shortens it by one).  Counter
-        ``bb_pinned_bytes``: the bytes staged in page-locked memory."""
+        run, so an interior NaN shortens it by one).  Counters
+        ``bb_pinned_bytes``: the bytes staged in page-locked memory;
+        ``bb_plane_pings``: the pings staged from the parser's planes."""
         with stage("bb_host_stage"):
             n = sl.stop - sl.start
             r, i = (b[:n] for b in self.bufs)
-            r.copy_(self.src[0][ci, sl])
-            i.copy_(self.src[1][ci, sl])
+            self.layout.copy_pings(ci, sl, r, i)
             valid_len = (~torch.isnan(r[..., 0])).sum(dim=1, dtype=torch.int32).numpy()
+            if self.layout.planes:
+                count("bb_plane_pings", n)
             if self.pinned:
                 count("bb_pinned_bytes", 2 * r.numel() * r.element_size())
                 return r, i, valid_len
             return r.numpy(), i.numpy(), valid_len
 
 
-def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_bin_m,
-                       chunk_pings, sv_kw, timer, dev, fd=None):
+def _run_complex_fused(eds, beam_paths, layouts, chans, ping_times, ping_time_bin,
+                       range_bin_m, chunk_pings, sv_kw, timer, dev, fd=None):
     """Fused complex-channel streaming: one device pass per (channel, chunk)
     does pulse compression, received power, Sv and the window bins
     (``ops/bb_pipeline.bb_chunk_window_partials``), float32 end to end.
@@ -1159,6 +1171,9 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
     Sv alone (``bb_chunk_sv``), the chunk's channels stack on the device in
     survey order, the cross-channel mask applies, and one binning pass
     takes the stack.
+
+    ``layouts`` holds each file's group layout, or None where the group
+    holds its samples: each (channel, chunk) is staged from it.
     """
     from ..calibrate.api import epoch_slice_dicts
     from ..calibrate.ek80 import CalibrateEK80
@@ -1167,9 +1182,9 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
 
     waveform_mode = sv_kw["waveform_mode"]
     do_pc = waveform_mode in ("BB", "FM")
-    cals, scals, r_max = [], [], 0.0
+    cals, scals, file_layouts, r_max = [], [], [], 0.0
     with timer.stage("param_resolution"):
-        for ed, bp in zip(eds, beam_paths):
+        for ed, bp, layout in zip(eds, beam_paths, layouts):
             slice_dicts = (epoch_slice_dicts(ed[bp], ed["Vendor_specific"])
                            if _n_filter_times(ed) > 1 else [{}])
             for sd in slice_dicts:
@@ -1182,6 +1197,7 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
                     scal = cal._complex_sv_scalars()
                 cals.append(cal)
                 scals.append(scal)
+                file_layouts.append(layout)
                 # the last sample sits at (R - 1) * dr
                 r_max = max(r_max, float(np.nanmax(scal["dr"])) * (cal.beam.sizes["range_sample"]
                                                                    - 1))
@@ -1195,7 +1211,7 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
     staged = _ComplexChunkStage(min(plan.chunk_pings, max(map(len, plan.x_ids), default=0)),
                                 dev)
 
-    for cal, scal, x_ids in zip(cals, scals, plan.x_ids):
+    for cal, scal, layout, x_ids in zip(cals, scals, file_layouts, plan.x_ids):
         with timer.stage("param_resolution"):
             beam = cal.beam
             n_ch, n_ping = beam.sizes["channel"], beam.sizes["ping_time"]
@@ -1218,7 +1234,12 @@ def _run_complex_fused(eds, beam_paths, chans, ping_times, ping_time_bin, range_
                         np.float32(1.0 / float(norm.sel(channel=cid).values)) if do_pc else 1.0,
                     ))
             with stage("bb_host_stage"):  # the samples' source, the TVG boundary
-                staged.file(beam["backscatter_r"].values, beam["backscatter_i"].values)
+                if layout is None:
+                    layout = ComplexLayout.of_group(beam["backscatter_r"].values,
+                                                    beam["backscatter_i"].values)
+                else:  # the epoch's channel and pings
+                    layout = layout.select(ch_ids, beam.coords["ping_time"].values)
+                staged.file(layout)
                 # the first sample with r_tvg > 0, decided in float64 (the
                 # chunked path's boundary sample)
                 k0 = np.maximum(np.floor(scal["shift"] / np.maximum(scal["dr"], 1e-30)) + 1,

@@ -26,6 +26,8 @@ import torch
 
 import echopype_torch as et
 import echopype_tpu as ep
+from echopype_torch.convert import api as tapi
+from echopype_torch.convert.set_groups_ek80 import ComplexLayout
 from echopype_torch.ops import bb_pipeline as tbb
 from echopype_torch.ops import window_partials as wp
 from echopype_torch.parallel import survey as ts
@@ -33,9 +35,10 @@ from echopype_torch.utils.profiling import StageTimer
 from echopype_tpu.ops import bb_pipeline as jbb
 from echopype_tpu.parallel import run_survey_mvbs_from_raw as run_jax
 
-from synth_ek80 import write_ek80_raw
+from synth_ek80 import CH_BB, write_ek80_raw
 from test_ek80_epochs import write_two_epoch_ek80
 from test_survey_epochs import write_two_epoch_bb
+from test_torch_convert_ek80 import MIXES, _write_complex_mix
 
 torch.set_num_threads(1)
 
@@ -252,34 +255,107 @@ def _complex_group(seed, R, beam_dim=True, C=3, P=11, B=4):
     return g if beam_dim else g[..., 0]
 
 
-@pytest.mark.parametrize("beam_dim", [True, False], ids=["4d", "3d"])
-def test_complex_chunk_stage_equals_the_whole_file_cast(beam_dim):
+#: file cases of the staging test: (writer, its keywords, chunk sizes); the
+#: convert tests' layouts of ragged and skipped channels
+STAGE_FILES = {
+    "one_run": (write_ek80_raw, dict(n_samples=48, seed=41, with_power_channel=False,
+                                     with_cw_complex=False), (4, 7)),
+    "ragged_channels": (_write_complex_mix, MIXES["ragged_channels"], (4,)),
+    "skipped_pings": (_write_complex_mix, MIXES["ragged_channels_skip"], (4,)),
+    "duplicate_ping": (write_ek80_raw, dict(n_samples=48, seed=45,
+                                            duplicate_pings={CH_BB: {2}}), (4,)),
+    "cut_runs": (write_ek80_raw, dict(n_samples=48, seed=44, extra_fm_channel=True,
+                                      skip_pings={CH_BB: {2, 3}}), (2, 3)),
+}
+
+
+@pytest.fixture(scope="module")
+def stage_files(tmp_path_factory):
+    d = tmp_path_factory.mktemp("stage_ek80")
+    out = {}
+    for name, (write, kw, _) in STAGE_FILES.items():
+        out[name] = str(d / f"{name}-D20210201-T000000.raw")
+        write(out[name], n_pings=7, **kw)
+    return out
+
+
+def _assert_chunk_is_the_cast(staged, ci, sl, want_r, want_i):
+    """``staged.chunk(ci, sl)`` is the float32 cast's [ci, sl] bit for bit,
+    its valid length the cast's NaN count of sector 0."""
+    r, i, vl = staged.chunk(ci, sl)
+    n = sl.stop - sl.start
+    assert isinstance(r, np.ndarray) and r.shape == (n, *want_r.shape[2:])
+    np.testing.assert_array_equal(r.view("u4"), want_r[ci, sl].view("u4"))
+    np.testing.assert_array_equal(i.view("u4"), want_i[ci, sl].view("u4"))
+    assert vl.dtype == np.int32
+    np.testing.assert_array_equal(vl, (~np.isnan(want_r[ci, sl, :, 0])).sum(axis=1))
+
+
+@pytest.mark.parametrize("case", ["4d", "3d", *STAGE_FILES])
+def test_complex_chunk_stage_equals_the_whole_file_cast(case, stage_files):
     """Each (channel, chunk) staged through the one reused buffer pair is
-    ``np.asarray(group, "f4")[ci, sl]`` bit for bit, and its valid length
-    the whole-file NaN count of sector 0; the last chunk is short (11
+    ``np.asarray(group, "f4")[ci, sl]`` bit for bit, NaN placement
+    included, and its valid length the whole-file NaN count of sector 0.
+
+    4d / 3d: the layout of a float64 group's own samples, with values that
+    round to even, overflow and go subnormal; the last chunk is short (11
     pings in chunks of 4), and the second file's R differs, so its chunks
-    take a new pair."""
+    take a new pair.  The file cases: the layout ``_open_raw_unfilled``
+    keeps of each complex group, from the parser's float32 planes, against
+    the group ``open_raw`` fills: one run a channel; channels of fewer
+    samples and sectors than the group's; pings a channel skips; a
+    duplicate ping; chunks that cut runs.  Filled from the layout, the
+    group is ``open_raw``'s bit for bit."""
     staged = ts._ComplexChunkStage(4, torch.device("cpu"))
-    pairs = []
-    for seed, R in ((0, 40), (1, 57)):
-        bs_r, bs_i = (_complex_group(seed + k, R, beam_dim) for k in (0, 10))
-        staged.file(bs_r, bs_i)
-        pairs.append(staged.bufs)
-        with np.errstate(over="ignore"):  # 1e39 -> inf, as the stage narrows it
-            want_r, want_i = (np.asarray(a, "f4").reshape(3, 11, R, -1) for a in (bs_r, bs_i))
-        want_vl = (~np.isnan(want_r[..., 0])).sum(axis=2)
-        for ci in range(3):
-            for lo in (0, 4, 8):
-                sl = slice(lo, min(lo + 4, 11))
-                r, i, vl = staged.chunk(ci, sl)
-                assert isinstance(r, np.ndarray) and r.shape == (sl.stop - lo, R, want_r.shape[3])
-                np.testing.assert_array_equal(r.view("u4"), want_r[ci, sl].view("u4"))
-                np.testing.assert_array_equal(i.view("u4"), want_i[ci, sl].view("u4"))
-                assert vl.dtype == np.int32
-                np.testing.assert_array_equal(vl, want_vl[ci, sl])
-        assert staged.bufs is pairs[-1]  # one pair for every chunk of the file
-    assert pairs[0][0].shape[1] == 40 and pairs[1][0].shape[1] == 57
-    assert want_vl[2, 9] == 56 and want_vl[1, 4] == 48
+    if case in ("4d", "3d"):
+        pairs = []
+        for seed, R in ((0, 40), (1, 57)):
+            bs_r, bs_i = (_complex_group(seed + k, R, case == "4d") for k in (0, 10))
+            staged.file(ComplexLayout.of_group(bs_r, bs_i))
+            pairs.append(staged.bufs)
+            with np.errstate(over="ignore"):  # 1e39 -> inf, as the stage narrows it
+                want_r, want_i = (np.asarray(a, "f4").reshape(3, 11, R, -1)
+                                  for a in (bs_r, bs_i))
+            for ci in range(3):
+                for lo in (0, 4, 8):
+                    _assert_chunk_is_the_cast(staged, ci, slice(lo, min(lo + 4, 11)),
+                                              want_r, want_i)
+            assert staged.bufs is pairs[-1]  # one pair for every chunk of the file
+        assert pairs[0][0].shape[1] == 40 and pairs[1][0].shape[1] == 57
+        vl = (~np.isnan(want_r[..., 0])).sum(axis=2)
+        assert vl[2, 9] == 56 and vl[1, 4] == 48
+        return
+    path, (_, _, sizes) = stage_files[case], STAGE_FILES[case]
+    ed, layouts = tapi._open_raw_unfilled(path, "EK80")
+    full = et.open_raw(path, sonar_model="EK80")
+    assert layouts and all(lay.planes for lay in layouts.values())
+    runs, gaps, ragged, cut = 0, 0, False, False
+    for bp, layout in layouts.items():
+        assert "backscatter_r" not in ed[bp] and "backscatter_i" not in ed[bp]
+        want_r, want_i = (np.asarray(full[bp][k].values, "f4")
+                          for k in ("backscatter_r", "backscatter_i"))
+        staged = ts._ComplexChunkStage(max(sizes), torch.device("cpu"))
+        staged.file(layout)
+        for size in sizes:
+            for ci in range(len(layout.channels)):
+                for lo in range(0, layout.n_t, size):
+                    _assert_chunk_is_the_cast(staged, ci, slice(lo, min(lo + size, layout.n_t)),
+                                              want_r, want_i)
+        runs = max(runs, max(len(k) for k in layout.runs))
+        cut |= any(d0 < lo < d0 + n for k in layout.runs for _, d0, n in k
+                   for size in sizes for lo in range(0, layout.n_t, size))
+        gaps += int(np.isnan(want_r).all(axis=(2, 3)).sum())
+        ragged |= any(a.shape[1:] != want_r.shape[2:] for a in layout.real)
+        layout.fill(ed[bp])
+        for k in ("backscatter_r", "backscatter_i"):
+            got, want = ed[bp][k].values, full[bp][k].values
+            assert got.dtype == want.dtype == np.float64
+            np.testing.assert_array_equal(got.view("u8"), want.view("u8"))
+    # each case holds the layout it names
+    assert (runs == 1) == (case in ("one_run", "ragged_channels"))
+    assert (gaps > 0) == (case in ("skipped_pings", "cut_runs"))
+    assert ragged == (case in ("ragged_channels", "skipped_pings"))
+    assert cut or case != "cut_runs"
 
 
 def test_complex_chunk_stage_aliases_nothing_across_channels():
@@ -292,7 +368,7 @@ def test_complex_chunk_stage_aliases_nothing_across_channels():
     bs_r, bs_i = (np.stack([a] + [a * rng.uniform(0.5, 2.0) for _ in range(2)]).astype("f8")
                   for a in ops[:2])
     staged = ts._ComplexChunkStage(5, torch.device("cpu"))
-    staged.file(bs_r, bs_i)
+    staged.file(ComplexLayout.of_group(bs_r, bs_i))
     f4_r, f4_i = np.asarray(bs_r, "f4"), np.asarray(bs_i, "f4")
     for lo in range(0, P, 5):
         sl = slice(lo, min(lo + 5, P))
