@@ -16,9 +16,9 @@ A run (see ``run.py`` for the command line):
 3. warms up with one call of the entry on the files it names
    (``warm_files``: one of each path the window's calls take);
 4. calls the entry in a loop of whole calls until ``--seconds`` have
-   passed, each call on fresh hard-linked names of the same files (no cache
-   keyed by path can serve a repeat); with ``--trace 1`` under
-   ``torch.profiler``;
+   passed, each call on fresh hard-linked names of the same files or
+   directory stores (no cache keyed by path can serve a repeat); with
+   ``--trace 1`` under ``torch.profiler``;
 5. reads the device memory peak, frees the program's state, compares what
    the window's calls returned with the plain reference, and prints the
    checks on standard error and one JSON line on standard output.
@@ -87,7 +87,17 @@ class Cell:
 
 
 class Linker:
-    """Fresh hard-linked names of the cell's files for each call."""
+    """Fresh hard-linked names of the cell's files or directory stores for
+    each call.
+
+    A file gets one hard link.  A directory store (a zarr tree: one folder
+    an array, one file a chunk) gets a tree of the same layout whose
+    directories are made anew and whose regular files are hard links of the
+    originals, so nothing is copied.  A symlink or special file inside a
+    store, and two paths of one call with the same base name, are refused.
+    The call's folder goes when the ``with`` block ends, also when its body
+    raises; the originals stay.
+    """
 
     def __init__(self, work_dir):
         self.work_dir = Path(work_dir)
@@ -95,18 +105,41 @@ class Linker:
 
     @contextlib.contextmanager
     def fresh(self, paths):
+        names = [Path(p).name for p in paths]
+        dup = sorted({n for n in names if names.count(n) > 1})
+        if dup:
+            raise ValueError(f"two of a call's paths share the base name {', '.join(dup)}")
         d = self.work_dir / f"call{self.n:05d}"
         self.n += 1
         d.mkdir()
-        out = []
-        for p in paths:
-            q = d / Path(p).name
-            os.link(p, q)
-            out.append(str(q))
         try:
+            out = []
+            for p, name in zip(paths, names):
+                q = d / name
+                if os.path.isdir(p):
+                    _link_tree(p, q)
+                else:
+                    os.link(p, q)
+                out.append(str(q))
             yield out
         finally:
             shutil.rmtree(d, ignore_errors=True)
+
+
+def _link_tree(src, dst):
+    """Make ``dst`` with ``src``'s layout: each directory anew, each regular
+    file a hard link of the original."""
+    os.mkdir(dst)
+    with os.scandir(src) as entries:
+        for e in entries:
+            q = os.path.join(dst, e.name)
+            if e.is_dir(follow_symlinks=False):
+                _link_tree(e.path, q)
+            elif e.is_file(follow_symlinks=False):
+                os.link(e.path, q)
+            else:
+                raise ValueError(f"{e.path}: neither a regular file nor a directory; "
+                                 "a store is linked file by file")
 
 
 def parse_args(argv):
