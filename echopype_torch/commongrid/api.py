@@ -272,109 +272,123 @@ def compute_NASC(
     """Nautical areal scattering coefficient on a (distance, depth) grid.
 
     NASC = mean_sv * mean_height * 4 pi 1852^2 per Echoview PRC_NASC
-    (reference commongrid/api.py:270-416, utils.py:97-207).
+    (reference commongrid/api.py:270-416, utils.py:97-207).  Every sample's
+    depth resolves on the host in float64, for the Sv sums and again for
+    the height sums; the bins run on ``device``.  Stages
+    (``utils.profiling.stage``): ``nasc_prepare`` (checks, distance, depth,
+    edges, orientation, ping bins, depth differences) and ``nasc_assemble``
+    (the product, mean ping times and positions, the Dataset), siblings of
+    the binning's own ``bin_membership`` and ``bin_device``.  Counters
+    ``nasc_pings`` (pings binned) and ``nasc_sample_pings`` (pings whose
+    samples resolve one by one: all of them).
     """
-    dev = resolve_device(device)
-    if "depth" not in ds_Sv:
-        raise ValueError("Input Sv dataset must contain 'depth' (use consolidate.add_depth)")
-    range_bin_m = _parse_x_bin(range_bin, "range_bin")
-    if not isinstance(dist_bin, str):
-        raise TypeError("dist_bin must be a string")
-    dist_bin_nmi = _parse_x_bin(dist_bin, "dist_bin")
+    with stage("nasc_prepare"):
+        dev = resolve_device(device)
+        if "depth" not in ds_Sv:
+            raise ValueError("Input Sv dataset must contain 'depth' (use consolidate.add_depth)")
+        range_bin_m = _parse_x_bin(range_bin, "range_bin")
+        if not isinstance(dist_bin, str):
+            raise TypeError("dist_bin must be a string")
+        dist_bin_nmi = _parse_x_bin(dist_bin, "dist_bin")
 
-    dist_nmi = get_distance_from_latlon(ds_Sv)
+        dist_nmi = get_distance_from_latlon(ds_Sv)
 
-    depth = np.asarray(ds_Sv["depth"].values, dtype="f8")
-    sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
-    depth_b = np.broadcast_to(_conform_range(depth, ds_Sv, "depth", sv.shape), sv.shape)
+        depth = np.asarray(ds_Sv["depth"].values, dtype="f8")
+        sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
+        depth_b = np.broadcast_to(_conform_range(depth, ds_Sv, "depth", sv.shape), sv.shape)
+        count("nasc_pings", sv.shape[1])
+        count("nasc_sample_pings", sv.shape[1])
 
-    dist_edges = np.arange(0, np.nanmax(dist_nmi) + dist_bin_nmi, dist_bin_nmi)
-    depth_edges = np.arange(0, np.nanmax(depth_b) + range_bin_m, range_bin_m)
-    n_x = len(dist_edges) - 1
+        dist_edges = np.arange(0, np.nanmax(dist_nmi) + dist_bin_nmi, dist_bin_nmi)
+        depth_edges = np.arange(0, np.nanmax(depth_b) + range_bin_m, range_bin_m)
+        n_x = len(dist_edges) - 1
 
-    # cumulative distance is non-decreasing: a sorted-contiguous reduction
-    sv, depth_b = _orient_range_axis(sv, depth_b)
-    x_bounds = binning.x_bounds_np(dist_nmi, dist_edges, closed)
-    x_idx = binning.bin_index_np(dist_nmi, dist_edges, closed)
+        # cumulative distance is non-decreasing: a sorted-contiguous reduction
+        sv, depth_b = _orient_range_axis(sv, depth_b)
+        x_bounds = binning.x_bounds_np(dist_nmi, dist_edges, closed)
+        x_idx = binning.bin_index_np(dist_nmi, dist_edges, closed)
+        edges_f8 = np.asarray(depth_edges, dtype="f8")
+        # mean height per (channel, dist, depth) bin: the depth first-differences
+        # summed over the bin / the pings in the distance bin (utils.py:160-201)
+        ddepth = np.diff(depth_b, axis=2).astype("f4")  # label=lower -> leading bins
 
-    edges_f8 = np.asarray(depth_edges, dtype="f8")
     sums, counts, nan_counts = binning.windowed_partials_np(
         sv, depth_b, edges_f8, x_bounds, skipna=bool(skipna), closed=closed, device=dev
     )
-    with np.errstate(invalid="ignore", divide="ignore"):
-        good = (counts > 0) & (nan_counts == 0)
-        sv_mean = np.where(good, sums / np.where(counts > 0, counts, 1), np.nan)
-
-    # mean height per (channel, dist, depth) bin: the depth first-differences
-    # summed over the bin / the pings in the distance bin (utils.py:160-201)
-    ddepth = np.diff(depth_b, axis=2).astype("f4")  # label=lower -> leading bins
     h_num = binning.windowed_sum_raw_np(
         ddepth, depth_b[:, :, :-1], edges_f8, x_bounds, closed=closed, device=dev
     )
-    denom = np.bincount(x_idx[x_idx >= 0], minlength=n_x).astype("f8")
-    with np.errstate(invalid="ignore", divide="ignore"):
-        h_mean = h_num / np.where(denom > 0, denom, np.nan)[None, :, None]
+    with stage("nasc_assemble"):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            good = (counts > 0) & (nan_counts == 0)
+            sv_mean = np.where(good, sums / np.where(counts > 0, counts, 1), np.nan)
+        denom = np.bincount(x_idx[x_idx >= 0], minlength=n_x).astype("f8")
+        with np.errstate(invalid="ignore", divide="ignore"):
+            h_mean = h_num / np.where(denom > 0, denom, np.nan)[None, :, None]
 
-    nasc = sv_mean * h_mean * 4 * np.pi * 1852**2
+        nasc = sv_mean * h_mean * 4 * np.pi * 1852**2
 
-    # mean ping_time per distance bin, host float64 on t0-relative ns
-    pt_ns = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]").astype("i8")
-    in_bin = x_idx >= 0
-    pt_rel = (pt_ns - pt_ns[0]).astype("f8")
-    pt_sums = np.bincount(x_idx[in_bin], weights=pt_rel[in_bin], minlength=n_x)
-    pt_cnts = np.bincount(x_idx[in_bin], minlength=n_x)
-    with np.errstate(invalid="ignore", divide="ignore"):
-        pt_mean = pt_ns[0] + pt_sums / np.where(pt_cnts > 0, pt_cnts, np.nan)
-    ping_time_out = np.where(pt_cnts > 0, pt_mean, np.datetime64("NaT", "ns").astype("i8"))
+        # mean ping_time per distance bin, host float64 on t0-relative ns
+        pt_ns = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]").astype("i8")
+        in_bin = x_idx >= 0
+        pt_rel = (pt_ns - pt_ns[0]).astype("f8")
+        pt_sums = np.bincount(x_idx[in_bin], weights=pt_rel[in_bin], minlength=n_x)
+        pt_cnts = np.bincount(x_idx[in_bin], minlength=n_x)
+        with np.errstate(invalid="ignore", divide="ignore"):
+            pt_mean = pt_ns[0] + pt_sums / np.where(pt_cnts > 0, pt_cnts, np.nan)
+        ping_time_out = np.where(pt_cnts > 0, pt_mean, np.datetime64("NaT", "ns").astype("i8"))
 
-    dim_0 = ds_Sv["Sv"].dims[0]
-    ds_NASC = Dataset(
-        coords={
-            dim_0: ds_Sv.coords[dim_0],
-            "distance": dist_edges[:-1],
-            "depth": depth_edges[:-1],
-        }
-    )
-    ds_NASC["NASC"] = (
-        (dim_0, "distance", "depth"),
-        nasc,
-        {"long_name": "Nautical Areal Scattering Coefficient (NASC, m2 nmi-2)", "units": "m2 nmi-2"},
-    )
-    ds_NASC["ping_time"] = (
-        ("distance",),
-        ping_time_out.astype("i8").astype("datetime64[ns]"),
-        {"long_name": "Mean ping time in distance bin"},
-    )
-    ds_NASC = get_reduced_positions(ds_Sv, ds_NASC, "distance", x_idx, n_x)
-    if "frequency_nominal" in ds_Sv:
-        ds_NASC["frequency_nominal"] = ds_Sv["frequency_nominal"]
+        dim_0 = ds_Sv["Sv"].dims[0]
+        ds_NASC = Dataset(
+            coords={
+                dim_0: ds_Sv.coords[dim_0],
+                "distance": dist_edges[:-1],
+                "depth": depth_edges[:-1],
+            }
+        )
+        ds_NASC["NASC"] = (
+            (dim_0, "distance", "depth"),
+            nasc,
+            {"long_name": "Nautical Areal Scattering Coefficient (NASC, m2 nmi-2)",
+             "units": "m2 nmi-2"},
+        )
+        ds_NASC["ping_time"] = (
+            ("distance",),
+            ping_time_out.astype("i8").astype("datetime64[ns]"),
+            {"long_name": "Mean ping time in distance bin"},
+        )
+        ds_NASC = get_reduced_positions(ds_Sv, ds_NASC, "distance", x_idx, n_x)
+        if "frequency_nominal" in ds_Sv:
+            ds_NASC["frequency_nominal"] = ds_Sv["frequency_nominal"]
 
-    ds_NASC.coords["distance"].attrs = {"long_name": "Cumulative distance", "units": "nmi"}
-    ds_NASC.coords["depth"].attrs = {"long_name": "Cell depth", "units": "m"}
-    # ACDD bounding box from the input per-ping positions, not the bin-reduced
-    # ones (reference api.py:404-414 reads ds_Sv lat/lon)
-    ds_NASC.attrs["Conventions"] = "CF-1.7,ACDD-1.3"
-    pt_in = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]")
-    pt_ok = pt_in[~np.isnat(pt_in)]
-    if pt_ok.size:
-        ds_NASC.attrs["time_coverage_start"] = np.datetime_as_string(pt_ok.min(), timezone="UTC")
-        ds_NASC.attrs["time_coverage_end"] = np.datetime_as_string(pt_ok.max(), timezone="UTC")
-    if "latitude" in ds_Sv and "longitude" in ds_Sv:
-        lat = np.asarray(ds_Sv["latitude"].values, dtype="f8")
-        lon = np.asarray(ds_Sv["longitude"].values, dtype="f8")
-        if np.isfinite(lat).any():
-            ds_NASC.attrs.update(
-                {
-                    "geospatial_lat_min": round(float(np.nanmin(lat)), 5),
-                    "geospatial_lat_max": round(float(np.nanmax(lat)), 5),
-                    "geospatial_lon_min": round(float(np.nanmin(lon)), 5),
-                    "geospatial_lon_max": round(float(np.nanmax(lon)), 5),
-                }
-            )
-    prov = echopype_prov_attrs("processing")
-    prov["processing_function"] = "commongrid.compute_NASC"
-    ds_NASC.attrs.update(prov)
-    return insert_input_processing_level(ds_NASC, input_ds=ds_Sv)
+        ds_NASC.coords["distance"].attrs = {"long_name": "Cumulative distance", "units": "nmi"}
+        ds_NASC.coords["depth"].attrs = {"long_name": "Cell depth", "units": "m"}
+        # ACDD bounding box from the input per-ping positions, not the bin-reduced
+        # ones (reference api.py:404-414 reads ds_Sv lat/lon)
+        ds_NASC.attrs["Conventions"] = "CF-1.7,ACDD-1.3"
+        pt_in = np.asarray(ds_Sv.coords["ping_time"].values, dtype="datetime64[ns]")
+        pt_ok = pt_in[~np.isnat(pt_in)]
+        if pt_ok.size:
+            ds_NASC.attrs["time_coverage_start"] = np.datetime_as_string(pt_ok.min(),
+                                                                         timezone="UTC")
+            ds_NASC.attrs["time_coverage_end"] = np.datetime_as_string(pt_ok.max(),
+                                                                       timezone="UTC")
+        if "latitude" in ds_Sv and "longitude" in ds_Sv:
+            lat = np.asarray(ds_Sv["latitude"].values, dtype="f8")
+            lon = np.asarray(ds_Sv["longitude"].values, dtype="f8")
+            if np.isfinite(lat).any():
+                ds_NASC.attrs.update(
+                    {
+                        "geospatial_lat_min": round(float(np.nanmin(lat)), 5),
+                        "geospatial_lat_max": round(float(np.nanmax(lat)), 5),
+                        "geospatial_lon_min": round(float(np.nanmin(lon)), 5),
+                        "geospatial_lon_max": round(float(np.nanmax(lon)), 5),
+                    }
+                )
+        prov = echopype_prov_attrs("processing")
+        prov["processing_function"] = "commongrid.compute_NASC"
+        ds_NASC.attrs.update(prov)
+        return insert_input_processing_level(ds_NASC, input_ds=ds_Sv)
 
 
 def regrid():
