@@ -11,6 +11,11 @@ instrument norm) it resolves that [C, R] row once and ships only Sv to
 ``device``, where a per-channel 0/1 matmul against the row bins it; where
 the grid varies by ping it resolves every sample of the [C, P, R] range,
 as in the JAX package.  Both give the same bits on a ping-invariant grid.
+``compute_NASC`` takes the same two routes on its depth grid, for the Sv
+sums and for the height sums (on the row, ``binning.windowed_sum_raw_grid_np``:
+the row's bin sums times each distance bin's ping count); its counter
+``nasc_sample_pings`` counts the pings of the per-sample route, as
+``mvbs_pings`` less ``mvbs_grid_pings`` does for ``compute_MVBS``.
 The linear-domain bin sums run on ``device`` in float32 for ping-invariant
 grids and in float64 for ping-varying ones.
 """
@@ -272,15 +277,19 @@ def compute_NASC(
     """Nautical areal scattering coefficient on a (distance, depth) grid.
 
     NASC = mean_sv * mean_height * 4 pi 1852^2 per Echoview PRC_NASC
-    (reference commongrid/api.py:270-416, utils.py:97-207).  Every sample's
-    depth resolves on the host in float64, for the Sv sums and again for
-    the height sums; the bins run on ``device``.  Stages
-    (``utils.profiling.stage``): ``nasc_prepare`` (checks, distance, depth,
-    edges, orientation, ping bins, depth differences) and ``nasc_assemble``
-    (the product, mean ping times and positions, the Dataset), siblings of
-    the binning's own ``bin_membership`` and ``bin_device``.  Counters
-    ``nasc_pings`` (pings binned) and ``nasc_sample_pings`` (pings whose
-    samples resolve one by one: all of them).
+    (reference commongrid/api.py:270-416, utils.py:97-207).  The depth
+    grid takes ``compute_MVBS``'s two routes (module docstring): a depth
+    row every ping shares resolves on the host in float64 once, as [C, R],
+    for the Sv sums and for the height sums, and only Sv goes to
+    ``device``; a grid that varies by ping resolves every sample's depth,
+    for the Sv sums and again for the height sums.  The bins run on
+    ``device``.  Stages (``utils.profiling.stage``): ``nasc_prepare``
+    (checks, distance, depth, the route test, edges, orientation, ping
+    bins, depth differences) and ``nasc_assemble`` (the product, mean ping
+    times and positions, the Dataset), siblings of the binning's own
+    ``bin_membership`` and ``bin_device``.  Counters ``nasc_pings`` (pings
+    binned) and ``nasc_sample_pings`` (pings whose samples resolve one by
+    one: those of a grid that varies by ping).
     """
     with stage("nasc_prepare"):
         dev = resolve_device(device)
@@ -296,8 +305,11 @@ def compute_NASC(
         depth = np.asarray(ds_Sv["depth"].values, dtype="f8")
         sv = np.asarray(ds_Sv["Sv"].values, dtype="f4")
         depth_b = np.broadcast_to(_conform_range(depth, ds_Sv, "depth", sv.shape), sv.shape)
+        row, grid = binning.ping_invariant_row(depth_b)
+        if grid:  # every depth step on the [C, R] row, held as [C, 1, R]
+            depth_b = row[:, None, :]
         count("nasc_pings", sv.shape[1])
-        count("nasc_sample_pings", sv.shape[1])
+        count("nasc_sample_pings", 0 if grid else sv.shape[1])
 
         dist_edges = np.arange(0, np.nanmax(dist_nmi) + dist_bin_nmi, dist_bin_nmi)
         depth_edges = np.arange(0, np.nanmax(depth_b) + range_bin_m, range_bin_m)
@@ -312,6 +324,7 @@ def compute_NASC(
         # summed over the bin / the pings in the distance bin (utils.py:160-201)
         ddepth = np.diff(depth_b, axis=2).astype("f4")  # label=lower -> leading bins
 
+    # a [C, 1, R] depth row goes on to the row twins (ops/binning.py, *_grid_np)
     sums, counts, nan_counts = binning.windowed_partials_np(
         sv, depth_b, edges_f8, x_bounds, skipna=bool(skipna), closed=closed, device=dev
     )

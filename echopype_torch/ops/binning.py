@@ -11,9 +11,15 @@ every ping bin is a contiguous run and reduces by a 0/1 matmul.
   float64 on the host.  Membership resolves by one of two routes: on a
   range grid that every ping shares (:func:`ping_invariant_row`, exact,
   NaN holes included) once for the [C, R] row
-  (:func:`windowed_partials_grid_np`), and on a grid that varies by ping
-  once per sample of the [C, P, R] range (:func:`windowed_partials_np`,
-  :func:`windowed_sum_raw_np`).  :func:`choose_block_g` picks the block
+  (:func:`windowed_partials_grid_np`, and :func:`windowed_sum_raw_grid_np`
+  for ``compute_NASC``'s height sums: the row's bin sums times each
+  distance bin's ping count), and on a grid that varies by ping once per
+  sample of the [C, P, R] range (:func:`windowed_partials_np`,
+  :func:`windowed_sum_raw_np`).  ``compute_MVBS`` and ``compute_NASC``
+  pass a row as a [C, 1, R] range operand to the ``windowed_*_np``
+  entries, which hand it to the row twins; ``compute_NASC``'s counter
+  ``nasc_sample_pings`` counts the pings of the per-sample route.
+  :func:`choose_block_g` picks the block
   size of :func:`blocked_banded_segment_sum` from the host's bin bounds.
 * Device, plain torch: :func:`_banded_x_reduce_xb` (ping windows) and the
   range bins, by one of two rules: on a ping-invariant grid a per-channel
@@ -65,6 +71,7 @@ __all__ = [
     "row_bin_bounds",
     "windowed_partials_grid_np",
     "windowed_partials_np",
+    "windowed_sum_raw_grid_np",
     "windowed_sum_raw_np",
     "x_bounds_np",
 ]
@@ -296,7 +303,12 @@ def windowed_partials_grid_np(sv, row, r_edges, x_bounds, skipna=True, closed="l
 def windowed_sum_raw_np(values, er, r_edges, x_bounds, closed="left", chunk_pings=8192,
                         device="cuda"):
     """NaN-skipping raw bin sums (float64) of ``values``, as
-    :func:`windowed_partials_np` bins them."""
+    :func:`windowed_partials_np` bins them.  ``values`` and ``er`` of one
+    ping, [C, 1, R], are the row every ping shares:
+    :func:`windowed_sum_raw_grid_np` bins it."""
+    if np.ndim(er) == 3 and np.shape(er)[1] == 1 == np.shape(values)[1]:
+        return windowed_sum_raw_grid_np(np.asarray(values)[:, 0], np.asarray(er)[:, 0], r_edges,
+                                        x_bounds, closed=closed, device=device)
     dev, er, edges_t, uniform, dtype = _encoded_chunks(er, r_edges, closed, device)
 
     def kernel(lo, hi, x_rel, window):
@@ -307,6 +319,30 @@ def windowed_sum_raw_np(values, er, r_edges, x_bounds, closed="left", chunk_ping
 
     return _windowed_accumulate(kernel, (values.shape[0], values.shape[1], len(edges_t) - 1),
                                 len(x_bounds) - 1, x_bounds, chunk_pings, 1)[0]
+
+
+def windowed_sum_raw_grid_np(values_row, row, r_edges, x_bounds, closed="left", device="cuda"):
+    """:func:`windowed_sum_raw_np` on one row of values and its range row,
+    both [C, R], that every ping shares (decide with
+    :func:`ping_invariant_row`): float64 [C, n_x, n_r].
+
+    Membership resolves on the host in float64 for the row alone; on
+    ``device``, :func:`binned_window_row_sum` sums the row into its bins
+    once (one float32 0/1 matmul, as one ping in one window bin), and each
+    ping bin's float64 ping count (``np.diff(x_bounds)``; the distance bins
+    of ``compute_NASC``) scales those sums on the host.  A count times a
+    float32 sum is exact in float64, so this is the per-sample route's
+    float64 ping reduction of the same row sums.
+    """
+    dev = resolve_device(device)
+    with stage("bin_membership"):
+        row_enc, edges = exact_bin_encode_np(row, r_edges, closed)[:2]
+    with stage("bin_device"):  # H2D of the two rows, the bins, D2H of [C, 1, n_r]
+        one_ping = torch.zeros(1, dtype=torch.int32, device=dev)
+        with no_tf32():
+            s_row = binned_window_row_sum(_to_dev(values_row, dev), _to_dev(row_enc, dev),
+                                          _to_dev(edges, dev), one_ping, 1, closed=closed)
+        return _host_f8(s_row) * np.diff(np.asarray(x_bounds)).astype("f8")[None, :, None]
 
 
 # ---------------------------------------------------------------- device side

@@ -9,7 +9,9 @@ Tolerances: MVBS within
 NASC rtol 1e-5, the float64 paths (ping-varying grids, index binning,
 positions, distance) within 1e-9; coords, NaN masks and attrs identical
 (processing timestamps aside).  The cases are those tests/test_commongrid.py
-pins, plus the branches of commongrid/api.py.
+pins, plus the branches of commongrid/api.py.  The range-row routes of
+``compute_MVBS`` and ``compute_NASC`` (and ``ops/binning.py``'s row twins)
+equal the per-sample route on the same grid bit for bit.
 """
 
 import numpy as np
@@ -373,6 +375,71 @@ class TestComputeNASC:
         with pytest.raises(ValueError, match="depth"):
             et.compute_NASC(make_sv_dataset(TDataset), device="cpu")
 
+    @staticmethod
+    def _route_case(case):
+        ds = _nasc_dataset(TDataset, seed=11)
+        dep, sv = ds.data_vars["depth"].values, ds.data_vars["Sv"].values
+        if case in ("shared_holes", "upward_holes"):
+            dep[:, :, 40:] = np.nan
+            dep[1, :, 20] = np.nan
+            if case == "upward_holes":  # a decreasing row: oriented before it is binned
+                dep[:] = dep[:, :, ::-1].copy()
+        elif case == "ragged_ping":  # one short ping
+            dep[:, 5, 35:] = np.nan
+            sv[:, 5, 35:] = np.nan
+        else:  # one ping at another sound speed: a scaled row
+            dep[:, 9] *= 1495.0 / 1480.0
+        return ds
+
+    @pytest.mark.parametrize("case, grid", [("shared_holes", True), ("upward_holes", True),
+                                            ("ragged_ping", False), ("sound_speed_ping", False)])
+    def test_route_decision(self, monkeypatch, case, grid):
+        """The [C, R] depth row is binned once, for the Sv and the height sums,
+        exactly when every ping shares it, NaN holes included; the Sv sums,
+        the height sums, NASC, the mean ping times and positions equal the
+        per-sample route's bit for bit."""
+        ds = self._route_case(case)
+        rows, sv_sums, h_sums = [], [], []
+        orig = (tb.windowed_sum_raw_grid_np, tb.windowed_partials_np, tb.windowed_sum_raw_np)
+        monkeypatch.setattr(tb, "windowed_sum_raw_grid_np",
+                            lambda v, row, *a, **kw: rows.append(row) or orig[0](v, row, *a, **kw))
+        monkeypatch.setattr(tb, "windowed_partials_np",
+                            lambda *a, **kw: sv_sums.append(orig[1](*a, **kw)) or sv_sums[-1])
+        monkeypatch.setattr(tb, "windowed_sum_raw_np",
+                            lambda *a, **kw: h_sums.append(orig[2](*a, **kw)) or h_sums[-1])
+        kw = dict(range_bin="5m", dist_bin="1nmi", device="cpu")  # 5-6 pings a bin
+        got = et.compute_NASC(ds, **kw)
+        assert len(rows) == int(grid)
+        if grid:
+            dep = np.asarray(ds["depth"].values)[:, 0]
+            want_row = dep[:, ::-1] if case == "upward_holes" else dep
+            np.testing.assert_array_equal(rows[0], want_row[:, :-1])
+        monkeypatch.setattr(tb, "ping_invariant_row", lambda er: (None, False))
+        want = et.compute_NASC(ds, **kw)
+        assert len(rows) == int(grid)
+        for g, w in zip(sv_sums[0], sv_sums[1]):
+            np.testing.assert_array_equal(g, w)
+        # exact on the CPU (the card's row matmul may round the row sums
+        # otherwise: within 1e-6, tests/test_torch_kernels_gpu.py)
+        np.testing.assert_array_equal(h_sums[0], h_sums[1])
+        nasc = np.asarray(got["NASC"].values)
+        np.testing.assert_array_equal(nasc, want["NASC"].values)
+        assert np.isfinite(nasc).any()
+        for key in ("ping_time", "latitude", "longitude"):
+            np.testing.assert_array_equal(got[key].values, want[key].values)
+        np.testing.assert_array_equal(got.coords["depth"].values, want.coords["depth"].values)
+
+    @pytest.mark.parametrize("case, grid", [("shared_holes", True), ("sound_speed_ping", False)])
+    def test_route_counters(self, tmp_path, case, grid):
+        """``nasc_pings`` counts the pings binned, ``nasc_sample_pings`` those
+        whose samples resolve one by one, in a profiler window."""
+        ds = self._route_case(case)
+        with profiling.trace(str(tmp_path)):
+            et.compute_NASC(ds, range_bin="5m", dist_bin="1nmi", device="cpu")
+        n = ds.sizes["ping_time"]
+        assert profiling.TRACED.counters["nasc_pings"] == n
+        assert profiling.TRACED.counters["nasc_sample_pings"] == (0 if grid else n)
+
 
 class TestUtils:
     @pytest.mark.parametrize("ping_time_bin", [
@@ -529,6 +596,35 @@ class TestBinningOps:
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)
         assert want[1].sum() > 0
+
+    @pytest.mark.parametrize("closed", ["left", "right"])
+    def test_windowed_sum_raw_grid_np(self, monkeypatch, closed):
+        """The row twin of the raw sums is the per-sample route on the row
+        broadcast over the pings, bit for bit: NaN holes in the range row
+        and in the values, pings before the first and after the last
+        distance bin, an empty bin, five ping chunks; a [C, 1, R] operand to
+        ``windowed_sum_raw_np`` reaches it."""
+        sv, er, edges, _, _ = self._chunk(seed=7, P=70)
+        vals = np.abs(sv[:, 0])  # the row's values, NaN holes of their own
+        row = er[:, 0].astype("f8")
+        row[:, 50:] = np.nan
+        row[1, 17] = np.nan
+        x_bounds = np.array([3, 9, 9, 30, 55, 66])
+        kw = dict(closed=closed, device="cpu")
+        want = tb.windowed_sum_raw_np(np.broadcast_to(vals[:, None], sv.shape),
+                                      np.broadcast_to(row[:, None], sv.shape), edges, x_bounds,
+                                      chunk_pings=16, **kw)
+        rows = []
+        orig = tb.windowed_sum_raw_grid_np
+        monkeypatch.setattr(tb, "windowed_sum_raw_grid_np",
+                            lambda v, r, *a, **k: rows.append(r) or orig(v, r, *a, **k))
+        for got in (tb.windowed_sum_raw_grid_np(vals, row, edges, x_bounds, **kw),
+                    tb.windowed_sum_raw_np(vals[:, None], row[:, None], edges, x_bounds, **kw)):
+            assert got.dtype == np.float64 and got.shape == want.shape
+            np.testing.assert_array_equal(got, want)
+        assert len(rows) == 2
+        np.testing.assert_array_equal(rows[1], row)
+        assert (want[:, 1] == 0).all() and (want[:, 2] > 0).any()
 
     @pytest.mark.parametrize("uniform", [True, False])
     def test_windowed_partials_np(self, uniform):

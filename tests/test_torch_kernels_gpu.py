@@ -34,7 +34,9 @@ The Sv-store streamers' plain-torch binning (``binned_window_partials_grid``,
 in ``binned_window_partials`` / ``binned_window_sum_raw``) runs
 on the card against ``device="cpu"`` at a full-width chunk, 5 x 5,000 x
 4,000 float32: counts exact, sums within rtol 1e-5; the per-ping route run
-twice on such a chunk is bit-identical.
+twice on such a chunk is bit-identical.  ``compute_NASC``'s height sums on
+a depth row (``windowed_sum_raw_grid_np``) match the CPU and the
+per-sample route within rtol 1e-5.
 
 EK80: the matched filter (``ops/matched_filter.py``) on the card at 2,000
 pings x 4 sectors x 8,192 samples against the host float64 convolution,
@@ -423,6 +425,30 @@ def test_grid_binning_card_equals_cpu(cuda, skipna):
     h_args = (ddep[:, :-1], row[:, :-1], enc_edges, x_rel)
     _close([tb.binned_window_row_sum(*_to(cuda, *h_args), n_x)],
            [tb.binned_window_row_sum(*_to("cpu", *h_args), n_x)])
+
+
+def test_row_height_sums_card_equals_cpu(cuda):
+    """``compute_NASC``'s height sums on a depth row every ping shares
+    (``windowed_sum_raw_grid_np``), 5 x 4,000 with NaN holes, 15 distance
+    bins over 2,000 pings, some outside them: the card against the CPU and
+    against the per-sample route on the row broadcast over the pings."""
+    rng = np.random.default_rng(14)
+    C, P, R = 5, 2000, 4000
+    row = np.broadcast_to(9.15 + np.arange(R) * 0.18944, (C, R)).copy()
+    row[:, 3990:] = np.nan
+    row[2, 100] = np.nan
+    vals = np.diff(row, axis=1).astype("f4")
+    edges = np.arange(0, np.nanmax(row) + 10.0, 10.0)
+    x_bounds = np.searchsorted(np.sort(rng.uniform(0.2, 7.8, P)), np.arange(0, 7.6, 0.5))
+    args = (vals, row[:, :-1], edges, x_bounds)
+    got = tb.windowed_sum_raw_grid_np(*args, device=cuda)
+    want = tb.windowed_sum_raw_grid_np(*args, device="cpu")
+    per_sample = tb.windowed_sum_raw_np(np.broadcast_to(vals[:, None], (C, P, R - 1)),
+                                        np.broadcast_to(row[:, None, :-1], (C, P, R - 1)),
+                                        edges, x_bounds, device=cuda)
+    for w in (want, per_sample):
+        np.testing.assert_allclose(got, w, rtol=1e-5, atol=1e-30)
+    assert got.shape == (C, 15, len(edges) - 1) and (got > 0).any()
 
 
 def test_rows_binning_card_equals_cpu(cuda):
